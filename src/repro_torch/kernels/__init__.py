@@ -1,0 +1,6 @@
+"""Set-intersection kernels: hand-written CUDA (``csrc/``) behind ops.py.
+
+``ops.py`` holds the public entry points, ``dispatch.py`` the impl
+resolution, ``ref.py`` the plain PyTorch versions, ``build.py`` the nvcc
+build, and one wrapper module per CUDA kernel.
+"""

@@ -1,0 +1,85 @@
+"""Public set-intersection ops with the reference's semantics.
+
+Counterpart of ``repro/kernels/ops.py`` (its padded-set half). Impl
+resolution lives in :mod:`repro_torch.kernels.dispatch`: explicit
+``impl=`` > ``REPRO_TORCH_<OP>_IMPL`` > the operand's device type. On a
+CUDA tensor ``auto`` launches the hand-written kernel (or raises); the
+plain versions of :mod:`repro_torch.kernels.ref` run there only when an
+impl names them. On a CPU tensor ``auto`` picks a plain version, and
+``impl="cuda"`` raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import dispatch, ref
+from .gather_intersect import gather_intersect_cuda
+from .sorted_intersect import sorted_intersect_cuda
+
+
+def _check_binary_operands(a: torch.Tensor, b: torch.Tensor,
+                           sentinel: int) -> None:
+    """Loud precondition check for ``impl='binary'``.
+
+    The binary-search probe needs 2-D operands with a shared batch and
+    ``b`` rows *fully ascending* with holes only in the tail (fresh DBQ
+    rows are; INT results carry in-place holes — keep those on the ``a``
+    side). Violations raise a ValueError up front.
+    """
+    if a.ndim != 2 or b.ndim != 2 or a.shape[0] != b.shape[0]:
+        raise ValueError(
+            "impl='binary' needs 2-D operands with a shared batch: got "
+            f"a{tuple(a.shape)}, b{tuple(b.shape)}; pad/stack rows first "
+            "or use impl='ref'")
+    if b.numel() and bool((b[:, 1:] < b[:, :-1]).any()):
+        raise ValueError(
+            "impl='binary' needs b rows fully ascending with holes "
+            "only in the tail (sentinel-padded DBQ rows); this b has "
+            "out-of-order entries or interspersed holes — resort "
+            "(torch.sort(b, dim=-1)) or use impl='ref'/'chunked'")
+
+
+def intersect_padded(a: torch.Tensor, b: torch.Tensor, sentinel: int,
+                     impl: str = "auto") -> torch.Tensor:
+    """Row-wise padded-set intersection; see kernels/ref.py for semantics.
+
+    a: int32[B, Da], b: int32[B, Db] (widths may differ) -> int32[B, Da].
+    ``impl``: auto | cuda | ref | chunked | binary. ``binary`` needs ``b``
+    rows fully ascending (holes only in the tail) and raises ValueError
+    otherwise.
+    """
+    impl = dispatch.resolve_impl("intersect", impl,
+                                 platform=a.device.type, width=a.shape[-1])
+    if impl == "ref":
+        return ref.sorted_intersect(a, b, sentinel)
+    if impl == "chunked":
+        return ref.sorted_intersect_chunked(a, b, sentinel)
+    if impl == "binary":
+        _check_binary_operands(a, b, sentinel)
+        return ref.sorted_intersect_binary(a, b, sentinel)
+    return sorted_intersect_cuda(a, b, sentinel)
+
+
+def fused_gather_intersect(cand: torch.Tensor, ids: torch.Tensor,
+                           rows: torch.Tensor, sentinel: int,
+                           impl: str = "auto") -> torch.Tensor:
+    """``cand[i] ∩ rows[ids[i]]`` without materializing ``rows[ids]``.
+
+    cand int32[B, Dc] padded sets, ids int32[B] frontier row indices (any
+    values — clipped to ``[0, sentinel]``, the all-sentinel row), rows
+    int32[N+1, D] padded adjacency whose row N is all-sentinel. Returns
+    int32[B, Dc] in ``cand``'s slots, bit-equal to
+    ``intersect_padded(cand, rows[clip(ids)], sentinel)``.
+
+    ``impl``: auto | cuda fuse on the card (csrc/gather_intersect.cu);
+    ref | chunked | binary gather then intersect with that impl.
+    """
+    impl = dispatch.resolve_impl("gather_intersect", impl,
+                                 platform=cand.device.type,
+                                 width=rows.shape[-1])
+    ids = ids.clamp(0, sentinel)
+    if impl in ("ref", "chunked", "binary"):
+        return intersect_padded(cand, rows.index_select(0, ids), sentinel,
+                                impl=impl)
+    return gather_intersect_cuda(ids, cand, rows, sentinel)

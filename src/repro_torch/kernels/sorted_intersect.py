@@ -1,0 +1,56 @@
+"""CUDA wrapper: row-wise padded-set intersection (``csrc/sorted_intersect.cu``).
+
+Replaces the Pallas TPU kernel ``sorted_intersect_pallas``
+(``src/repro/kernels/sorted_intersect.py``). The kernel is memory-bound:
+it reads ``B*(Da+Db)*4`` bytes and writes ``B*Da*4``; one block per row
+stages ``b``'s valid entries in shared memory, compacted in order, and
+binary-searches each ``a`` lane there (see the source's header). Its plain
+version is :func:`repro_torch.kernels.ref.sorted_intersect`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+#: launches of the CUDA kernel by :func:`sorted_intersect_cuda` since the
+#: last reset (callers set it to 0)
+launches = 0
+
+
+def _check_int32_cuda(name: str, t: torch.Tensor, ndim: int) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != torch.int32:
+        raise ValueError(f"{name} must be int32, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def sorted_intersect_cuda(a: torch.Tensor, b: torch.Tensor,
+                          sentinel: int) -> torch.Tensor:
+    """``a ∩ b`` per row, kept in ``a``'s slots, on the card.
+
+    a: int32[B, Da], b: int32[B, Db] contiguous CUDA padded sets (widths may
+    differ) -> int32[B, Da]. Raises on any other input.
+    """
+    global launches
+    _check_int32_cuda("a", a, 2)
+    _check_int32_cuda("b", b, 2)
+    if a.shape[0] != b.shape[0] or a.device != b.device:
+        raise ValueError(f"a{tuple(a.shape)} and b{tuple(b.shape)} need a "
+                         "shared batch on one device")
+    out = torch.empty_like(a)
+    if a.numel() == 0:
+        return out
+    lib = build.library("sorted_intersect")
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = lib.sorted_intersect_launch(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], a.shape[1],
+        b.shape[1], sentinel, a.device.index, stream)
+    build.check(lib, err, "sorted_intersect")
+    launches += 1
+    return out
