@@ -19,7 +19,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the card) through ``torch`` and ``torch-gpu``; both counts must equal an
    independent triangle count computed here from the host CSR with plain
    torch ops (no engine, no kernel). Each kernel's launch counter is set
-   to 0 just before and read just after, and must be > 0.
+   to 0 just before and read just after, and must be > 0;
+5. the LM serving path at full width: qwen2-0.5b (bf16, random weights
+   from a seeded generator on the card): ``prefill_step`` at 4 x 4096
+   tokens with the kernels and with the plain versions, and the serve
+   loop (batch 4, prompt 16, decode 32, cache 128), re-run teacher-forced
+   with the plain versions; logits must agree within twice the bf16
+   floor measured against the same weights in f32 (``LM_TOL_FLOORS``),
+   and the launch counts must be 24 flash_attention and 49 rmsnorm per
+   prefill forward, 0 and 49 per decode step. ``torch.profiler`` gives
+   the device's busy share and its kernels by time for one prefill and a
+   short serve loop.
+
+Phase 2 also holds rmsnorm and flash_attention against their plain
+versions (rmsnorm: 1e-5 in f32, one bf16 ulp of the output in bf16;
+flash: 2e-5 with f32 inputs, 2e-2 abs with bf16 inputs against the f32
+plain result) and times them at the prefill shape beside the plain
+version, the bound (the larger of bytes over the memory rate and flops
+over the dense bf16 tensor-core rate) and one PyTorch library call
+(``F.rms_norm``, ``F.scaled_dot_product_attention``), timed only here.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It exits non-zero with no
@@ -28,6 +46,7 @@ result when there is no CUDA device or no ``src/repro_torch`` beside it.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -41,7 +60,21 @@ SEED = 0
 # memory-bound kernel is its bytes over this rate
 BANDWIDTH = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
              ("H100", 3.35e12))
+# dense bf16 tensor-core rate by card name (NVIDIA data sheets); the bound
+# of an operation-bound kernel is its flops over this rate
+PEAK_BF16 = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H200", 989e12),
+             ("H100", 989e12))
 FULL_N, FULL_BATCH, FULL_CAPS = 1_000_000, 4096, (65536, 16384)
+# LM path: prefill 4 x 4096 tokens; the serve loop as serve.py's defaults
+LM_ARCH, LM_BATCH, LM_SEQ = "qwen2-0.5b", 4, 4096
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_CACHE = 4, 16, 32, 128
+# kernels vs plain versions end to end in bf16: both round every
+# activation to 8 significant bits, in other orders, through 24 layers.
+# The yardstick is measured in the run: ``floor`` = max |plain bf16 - the
+# same weights in f32| over the prefill logits, how far bf16 rounding
+# alone moves them; two bf16 results, each that far from the f32 ones,
+# must agree within LM_TOL_FLOORS * floor
+LM_TOL_FLOORS = 2.0
 MID_N, MID_BATCH, MID_CAPS = 20_000, 64, (8192, 16384, 32768, 65536)
 
 
@@ -49,11 +82,11 @@ def log(*args) -> None:
     print(*args, flush=True)
 
 
-def card_bandwidth(name: str) -> float:
-    for key, bw in BANDWIDTH:
+def card_rate(table, name: str) -> float:
+    for key, rate in table:
         if key in name:
-            return bw
-    raise RuntimeError(f"no memory bandwidth known for card {name!r}")
+            return rate
+    raise RuntimeError(f"no rate known for card {name!r}")
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -373,6 +406,321 @@ def phase_full(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 2 (LM kernels): rmsnorm and flash_attention vs their plain versions
+# ---------------------------------------------------------------------------
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    import torch
+    mag = x.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def rotating(fn, args_list):
+    """A callable that runs ``fn`` on the next argument tuple each call, so
+    timed launches read inputs that are not left in L2 by the last one."""
+    state = {"i": 0}
+
+    def call():
+        args = args_list[state["i"] % len(args_list)]
+        state["i"] += 1
+        return fn(*args)
+    return call
+
+
+def phase_lm_kernels(dev, bandwidth: float, peak: float) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    out = {}
+
+    # -- rmsnorm: the prefill rows, the decode rows, an odd width
+    worst = 0.0
+    for rows, d in ((LM_BATCH * LM_SEQ, 896), (4, 896), (1000, 1001)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn((rows, d), generator=gen, device=dev)
+                 * 3).to(dtype)
+            g = torch.randn((d,), generator=gen, device=dev).to(dtype)
+            got = rn.rmsnorm_cuda(x, g, 1e-6)
+            want = ref.rmsnorm(x, g, 1e-6)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            if dtype == torch.float32:
+                ok = bool((err <= 1e-5 + 1e-5 * want.abs()).all())
+                tol = "1e-5"
+            else:
+                ok = bool((err <= bf16_ulp(want)).all())
+                tol = "one bf16 ulp"
+            log(f"  rmsnorm [{rows}, {d}] {str(dtype)[6:]}: max_abs_err "
+                f"{float(err.max()):.3g} (tolerance {tol}): "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"rmsnorm disagrees with its plain "
+                                   f"version at [{rows}, {d}] {dtype}")
+            if (rows, dtype) == (LM_BATCH * LM_SEQ, torch.bfloat16):
+                worst = float(err.max())
+    rows, d = LM_BATCH * LM_SEQ, 896
+    # four input sets, 117 MB in all: more than the 50 MB L2
+    sets = [((torch.randn((rows, d), generator=gen, device=dev)
+              ).to(torch.bfloat16),
+             torch.randn((d,), generator=gen, device=dev).to(torch.bfloat16))
+            for _ in range(4)]
+    nbytes = (2 * rows * d + d) * 2
+    out["rmsnorm"] = dict(
+        ms=cuda_time_ms(rotating(lambda x, g: rn.rmsnorm_cuda(x, g, 1e-6),
+                                 sets), 40),
+        plain_ms=cuda_time_ms(rotating(lambda x, g: ref.rmsnorm(x, g, 1e-6),
+                                       sets), 8),
+        library_ms=cuda_time_ms(rotating(
+            lambda x, g: F.rms_norm(x, (d,), g, 1e-6), sets), 40),
+        bound_ms=nbytes / bandwidth * 1e3, bound_by="bytes",
+        max_abs_err=worst, shape=f"[{rows}, {d}] bf16")
+    del sets
+
+    # -- flash_attention
+    cases = [  # (B, Hq, Hkv, Tq, Tk, d, causal)
+        (LM_BATCH, 14, 2, LM_SEQ, LM_SEQ, 64, True),     # the prefill shape
+        (1, 16, 2, 2048, 2048, 128, True),
+        (1, 14, 2, 1000, 1000, 64, True),                # ragged tails
+        (1, 14, 2, 256, 1024, 64, True),                 # decode offset
+        (1, 14, 2, 256, 128, 64, True),                  # rows see no key
+        (2, 14, 2, 512, 384, 64, False),
+    ]
+    worst = 0.0
+    for b, hq, hkv, tq, tk, d, causal in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            def rand(h, t):
+                return torch.randn((b, h, t, d), generator=gen,
+                                   device=dev).to(dtype)
+            q, k, v = rand(hq, tq), rand(hkv, tk), rand(hkv, tk)
+            got = fa.flash_attention_cuda(q, k, v, causal=causal)
+            want = ref.flash_attention(q.float(), k.float(), v.float(),
+                                       causal=causal)
+            torch.cuda.synchronize()
+            err = float((got.float() - want).abs().max())
+            if dtype == torch.float32:
+                ok = bool(((got - want).abs()
+                           <= 2e-5 + 2e-5 * want.abs()).all())
+            else:
+                ok = err <= 2e-2
+                worst = max(worst, err)
+            log(f"  flash_attention B={b} Hq={hq} Hkv={hkv} Tq={tq} "
+                f"Tk={tk} d={d} causal={causal} {str(dtype)[6:]}: "
+                f"max_abs_err {err:.3g}: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError("flash_attention disagrees with its plain "
+                                   f"version at {(b, hq, hkv, tq, tk, d)}")
+            del q, k, v, got, want
+    b, hq, hkv, t, d = LM_BATCH, 14, 2, LM_SEQ, 64
+    q = torch.randn((b, hq, t, d), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, hkv, t, d), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, hkv, t, d), generator=gen, device=dev).bfloat16()
+    visible = t * (t + 1) // 2                       # causal pairs per head
+    flops = 4 * b * hq * d * visible
+    nbytes = (2 * b * hq * t * d + 2 * b * hkv * t * d) * 2
+    out["flash_attention"] = dict(
+        ms=cuda_time_ms(lambda: fa.flash_attention_cuda(q, k, v), 5),
+        plain_ms=cuda_time_ms(lambda: ref.flash_attention(q, k, v), 2),
+        library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20),
+        bound_ms=max(nbytes / bandwidth, flops / peak) * 1e3,
+        bound_by="operations" if flops / peak > nbytes / bandwidth
+        else "bytes",
+        max_abs_err=worst, shape=f"q[{b},{hq},{t},{d}] kv[{b},{hkv},{t},{d}]"
+                                 " bf16 causal")
+    del q, k, v
+    for name in ("rmsnorm", "flash_attention"):
+        r = out[name]
+        log(f"  {name} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the LM serving path at full width
+# ---------------------------------------------------------------------------
+
+
+def lm_counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    return {"flash_attention": fa.launches, "rmsnorm": rn.launches}
+
+
+def zero_lm_counts() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    fa.launches = rn.launches = 0
+
+
+def expect_counts(tag: str, want: dict) -> dict:
+    got = lm_counts()
+    log(f"  {tag}: launches {got}")
+    if got != want:
+        raise RuntimeError(f"{tag}: launches {got}, expected {want}")
+    return got
+
+
+def compare_logits(tag: str, got, want, tol: float) -> None:
+    diff = float((got.float() - want.float()).abs().max())
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    log(f"  {tag}: max |logit diff| {diff:.4g} (tolerance {tol:.4g}), "
+        f"argmax agreement {agree:.3f}")
+    if not diff <= tol:
+        raise RuntimeError(f"{tag}: logits differ by {diff} > {tol}")
+
+
+def device_profile(tag: str, fn) -> None:
+    """Run ``fn`` under torch.profiler; print the wall time, the device's
+    busy share (kernel time over wall) and the kernels by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side entries only: an aten op's entry carries its kernels'
+    # time too, which would count them twice
+    rows = sorted(((getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0)),
+                    e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    rows = [r for r in rows if r[0] > 0]
+    busy = sum(r[0] for r in rows) / 1e6
+    if busy == 0:
+        log(f"  profile {tag}: the profiler recorded no device time "
+            "(busy share not measured)")
+        return
+    log(f"  profile {tag}: wall {wall:.4f} s (profiled), device busy "
+        f"{busy:.4f} s ({100 * busy / wall:.1f}%), idle "
+        f"{100 * (1 - busy / wall):.1f}%")
+    for us, count, key in rows[:6]:
+        log(f"    {us / 1e3:9.3f} ms {100 * us / 1e6 / busy:5.1f}% "
+            f"x{count:<5d} {key[:90]}")
+
+
+def phase_lm(dev) -> dict:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models.transformer import (Transformer, init_params,
+                                                prefill_step)
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH).model_cfg
+    L = cfg.n_layers
+    model = init_params(cfg, seed=SEED, device=dev)
+    n = sum(p.numel() for p in model.parameters())
+    # the config's count, as the reference's, leaves out the QKV biases
+    bias = L * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.d_head
+    log(f"  {cfg.name}: {n} parameters ({cfg.n_params} by the config + "
+        f"{bias} QKV bias), {str(cfg.dtype)[6:]}, initialised on the card")
+    if n != cfg.n_params + bias:
+        raise RuntimeError(f"{n} parameters, the config says "
+                           f"{cfg.n_params} + {bias}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=gen,
+                           device=dev)
+    launches = {"flash_attention": 0, "rmsnorm": 0}
+
+    runs = {}
+    for tag, impl in (("kernels", "auto"), ("plain", "ref")):
+        prefill_step(model, tokens[:, :128], attn_impl=impl,
+                     norm_impl=impl)                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_lm_counts()
+        t0 = time.perf_counter()
+        runs[tag] = prefill_step(model, tokens, attn_impl=impl,
+                                 norm_impl=impl)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log(f"  prefill_step {LM_BATCH} x {LM_SEQ} ({tag}): {dt:.4f} s, "
+            f"{LM_BATCH * LM_SEQ / dt:.0f} tok/s, peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        got = expect_counts(f"prefill ({tag})",
+                            {"flash_attention": L, "rmsnorm": 2 * L + 1}
+                            if tag == "kernels" else
+                            {"flash_attention": 0, "rmsnorm": 0})
+        if tag == "kernels":
+            for k, c in got.items():
+                launches[k] += c
+    logits = runs["kernels"]
+    if logits.shape != (LM_BATCH, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"prefill logits {tuple(logits.shape)} not finite "
+                           "or of the wrong shape")
+    # the yardstick: the same weights in f32 (plain versions, full-f32
+    # matmuls) against the plain bf16 run
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model32 = Transformer(dataclasses.replace(cfg, dtype=torch.float32),
+                          torch.Generator(device=dev))
+    model32.load_state_dict(model.state_dict())        # bf16 -> f32 copy
+    ref32 = prefill_step(model32, tokens, attn_impl="ref", norm_impl="ref")
+    floor = float((runs["plain"].float() - ref32).abs().max())
+    err32 = float((logits.float() - ref32).abs().max())
+    tol = LM_TOL_FLOORS * floor
+    log(f"  prefill logits vs the f32 model: plain bf16 {floor:.4g} (the "
+        f"bf16 floor), kernels bf16 {err32:.4g}; tolerance "
+        f"{LM_TOL_FLOORS} x floor = {tol:.4g}")
+    if not err32 <= tol:
+        raise RuntimeError(f"prefill with the kernels is {err32} from the "
+                           f"f32 model, more than {tol}")
+    compare_logits("prefill last-position logits, kernels vs plain",
+                   logits, runs["plain"], tol)
+    del model32, ref32
+    device_profile("prefill_step (kernels)", lambda: prefill_step(
+        model, tokens))
+
+    prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=gen, device=dev)
+    serve_loop(model, prompt, 2, SERVE_CACHE)          # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_lm_counts()
+    out = serve_loop(model, prompt, SERVE_STEPS, SERVE_CACHE)
+    steps = SERVE_PROMPT + SERVE_STEPS
+    log(f"  serve loop batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, decode "
+        f"{SERVE_STEPS}, cache {SERVE_CACHE} (kernels): "
+        f"{out['seconds']:.4f} s, {SERVE_BATCH * steps / out['seconds']:.0f}"
+        f" tok/s, peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+        f"GiB; sample {out['tokens'][0][:16].tolist()}")
+    got = expect_counts("serve loop (kernels)",
+                        {"flash_attention": 0,
+                         "rmsnorm": (2 * L + 1) * steps})
+    for k, c in got.items():
+        launches[k] += c
+    zero_lm_counts()
+    plain = serve_loop(model, prompt, SERVE_STEPS, SERVE_CACHE,
+                       norm_impl="ref", forced=out["tokens"])
+    log(f"  serve loop teacher-forced (plain): {plain['seconds']:.4f} s, "
+        f"{SERVE_BATCH * steps / plain['seconds']:.0f} tok/s")
+    expect_counts("serve loop (plain)", {"flash_attention": 0, "rmsnorm": 0})
+    compare_logits(f"serve loop, all {steps} steps' logits, kernels vs plain",
+                   out["logits"], plain["logits"], tol)
+    pre = prefill_step(model, prompt)
+    compare_logits("decode logits after the prompt vs prefill_step",
+                   out["logits"][SERVE_PROMPT - 1], pre, tol)
+    device_profile(f"serve loop, {SERVE_PROMPT} + 8 steps (kernels)",
+                   lambda: serve_loop(model, prompt, 8, SERVE_CACHE))
+    log(f"  phase 5: {time.perf_counter() - t_phase:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py needs the repository around it "
@@ -403,27 +751,37 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    bandwidth = card_bandwidth(kind)
+    bandwidth = card_rate(BANDWIDTH, kind)
+    peak = card_rate(PEAK_BF16, kind)
     log(f"  card: {smi}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}; bound at {bandwidth / 1e12:.2f} TB/s")
+        f"{torch.version.cuda}; bound at {bandwidth / 1e12:.2f} TB/s and "
+        f"{peak / 1e12:.0f} TFLOP/s (bf16)")
 
     log("phase 2: kernels vs plain versions on the card")
     kern = phase_kernels(dev, bandwidth)
+    kern.update(phase_lm_kernels(dev, bandwidth, peak))
     log("phase 3: mid-size exactness")
     phase_mid(dev)
     log("phase 4: full size (main path)")
     launches = phase_full(dev)
+    log("phase 5: LM serving path at full width (qwen2-0.5b)")
+    launches.update(phase_lm(dev))
 
     sources = {"sorted_intersect": ("src/repro_torch/csrc/sorted_intersect.cu",
                                     "src/repro/kernels/sorted_intersect.py:50"),
                "gather_intersect": ("src/repro_torch/csrc/gather_intersect.cu",
-                                    "src/repro/kernels/gather_intersect.py:77")}
+                                    "src/repro/kernels/gather_intersect.py:77"),
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:68"),
+               "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                           "src/repro/kernels/rmsnorm.py:25")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": kern[name]["max_abs_err"],
                 "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"],
-                "bound_ms": kern[name]["bound_ms"], "bound_by": "bytes",
-                "library_ms": None}
+                "bound_ms": kern[name]["bound_ms"],
+                "bound_by": kern[name].get("bound_by", "bytes"),
+                "library_ms": kern[name].get("library_ms")}
                for name, (src, replaces) in sources.items()]
     print(smi)
     print(json.dumps({"kernels": kernels}))

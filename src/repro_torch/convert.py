@@ -1,9 +1,12 @@
 """Carry state from the JAX package into the port, as plain data.
 
-The tests run the port on the JAX package's own plan and device rows:
+The tests run the port on the JAX package's own plan, device rows and LM
+weights:
 
     plan = plan_from_fields(dataclasses.asdict(jax_plan))
     dg = device_graph_from_numpy(np.asarray(jax_device_graph.rows), n, "cpu")
+    sd = lm_state_dict_from_numpy(jax.tree.map(np.asarray, params), cfg)
+    model.load_state_dict(sd)
 
 Nothing here imports the JAX package; the inputs are dicts, tuples and
 numpy arrays.
@@ -11,7 +14,7 @@ numpy arrays.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -52,3 +55,38 @@ def device_graph_from_numpy(rows: np.ndarray, n: int,
         raise ValueError(f"rows{rows.shape} must be [n+1, D] with row n={n} "
                          "all-sentinel")
     return DeviceGraph(rows=torch.from_numpy(rows).to(device), n=n)
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A torch tensor owning a copy of ``a``. A bf16 leaf comes from JAX as
+    ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses: its bits
+    go across as uint16 and are viewed as ``torch.bfloat16``."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def lm_state_dict_from_numpy(params: Mapping[str, Any],
+                             cfg) -> Dict[str, torch.Tensor]:
+    """The port's ``Transformer`` state_dict from the JAX package's LM
+    params (the pytree of ``np.asarray`` leaves of
+    ``repro.models.transformer.init_params``). The stacked
+    ``dense_layers`` leaves ``[L, ...]`` are split per layer; a tied
+    ``embed`` stays the one ``embed`` entry, which the head reads
+    transposed."""
+    if "moe_layers" in params or cfg.moe or cfg.attn_kind == "mla":
+        raise NotImplementedError("MoE and MLA params come with the MoE/MLA "
+                                  "slice of the port")
+    sd = {"embed": _tensor(params["embed"]),
+          "final_norm.weight": _tensor(params["final_norm"])}
+    if not cfg.tie_embeddings:
+        sd["lm_head"] = _tensor(params["lm_head"])
+    stack = params["dense_layers"]
+    leaves = {"norm1.weight": stack["norm1"], "norm2.weight": stack["norm2"]}
+    leaves.update({f"attn.{k}": v for k, v in stack["attn"].items()})
+    leaves.update({f"ffn.{k}": v for k, v in stack["ffn"].items()})
+    for i in range(cfg.n_layers):
+        for name, leaf in leaves.items():
+            sd[f"layers.{i}.{name}"] = _tensor(np.asarray(leaf)[i])
+    return sd

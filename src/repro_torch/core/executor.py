@@ -37,7 +37,6 @@ import numpy as np
 import torch
 
 from ..graph.storage import Graph
-from ..kernels import dispatch
 from .engine_torch import (DeviceGraph, build_enumerator, check_jit_supported,
                            default_caps, resolve_device)
 from .instructions import ENU, Plan
@@ -323,16 +322,15 @@ class Executor:
 class TorchBackend(ExecutorBackend):
     """Lockstep frontier expansion on one device (core/engine_torch.py).
 
-    With the fused fetch path on, single-use DBQ row sets are never
-    materialized: the consuming INT probes the adjacency rows directly
-    (csrc/gather_intersect.cu). ``REPRO_TORCH_FUSED_FETCH`` turns it on or
-    off; unset, it is off here and on for ``torch-gpu``.
-    ``gather_intersect_impl`` picks the fused op's impl (auto | cuda |
-    ref/chunked/binary fallbacks).
+    The backend alone decides the fetch path: ``torch`` gathers every DBQ
+    row set, ``torch-gpu`` (``fused = True``) never materializes the
+    single-use ones, whose consuming INT probes the adjacency rows
+    directly (csrc/gather_intersect.cu). ``gather_intersect_impl`` picks
+    the fused op's impl (auto | cuda | ref/chunked/binary).
     """
 
     name = "torch"
-    _fused_default = False
+    fused = False
 
     def __init__(self, device=None, compaction: str = "cumsum",
                  gather_intersect_impl: str = "auto"):
@@ -352,7 +350,6 @@ class TorchBackend(ExecutorBackend):
             tuple(default_caps(plan, config.batch, self.dg.d))
         self._collect = config.collect_matches
         self._intersect = config.intersect_impl
-        self.fused = dispatch.fused_fetch_enabled(self._fused_default)
         self._runners: Dict[Tuple[int, ...], Callable] = {}
         self._level_acc: Optional[np.ndarray] = None
         if self.device.type == "cuda":
@@ -409,12 +406,11 @@ class TorchBackend(ExecutorBackend):
 
 
 class TorchGpuBackend(TorchBackend):
-    """``torch`` with the fused gather+intersect fetch path on by default
-    (``REPRO_TORCH_FUSED_FETCH=0`` turns it off without leaving the
-    backend). Counts and match sets are bit-equal to ``torch``."""
+    """``torch`` with the fused gather+intersect fetch path. Counts and
+    match sets are bit-equal to ``torch``."""
 
     name = "torch-gpu"
-    _fused_default = True
+    fused = True
 
 
 BACKENDS = {

@@ -1,4 +1,4 @@
-"""Set-intersection kernels: hand-written CUDA (``csrc/``) behind ops.py.
+"""The port's kernels: hand-written CUDA (``csrc/``) behind ops.py.
 
 ``ops.py`` holds the public entry points, ``dispatch.py`` the impl
 resolution, ``ref.py`` the plain PyTorch versions, ``build.py`` the nvcc

@@ -25,9 +25,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: library name -> (launch symbol, argtypes). Pointers and the stream are
-#: c_void_p, so ctypes never cuts a 64-bit address to a 32-bit int.
+#: c_void_p, so ctypes never cuts a 64-bit address to a 32-bit int. A
+#: float kernel takes a dtype code (``DTYPE_CODES``) and dispatches to a
+#: template on it.
 SIGNATURES: Dict[str, Tuple[str, List[type]]] = {
     # (a, b, out, B, Da, Db, sentinel, device, stream)
     "sorted_intersect": ("sorted_intersect_launch",
@@ -35,7 +37,27 @@ SIGNATURES: Dict[str, Tuple[str, List[type]]] = {
     # (ids, cand, adj, out, B, Dc, D, sentinel, device, stream)
     "gather_intersect": ("gather_intersect_launch",
                          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # (x, gamma, out, R, d, eps, dtype, device, stream)
+    "rmsnorm": ("rmsnorm_launch", [_P, _P, _P, _I, _I, _F, _I, _I, _P]),
+    # (q, k, v, out, B, Hq, Hkv, Tq, Tk, d, causal, scale, dtype, device,
+    #  stream)
+    "flash_attention": ("flash_attention_launch",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                         _I, _P]),
 }
+
+#: dtype code passed to a float kernel (``csrc/*.cu`` switch on it)
+DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+
+
+def dtype_code(dtype) -> int:
+    """The ``DTYPE_CODES`` entry of a torch dtype; raises on any other."""
+    name = str(dtype).removeprefix("torch.")
+    if name not in DTYPE_CODES:
+        raise ValueError(f"the CUDA kernels take {sorted(DTYPE_CODES)}, "
+                         f"not {dtype}")
+    return DTYPE_CODES[name]
+
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

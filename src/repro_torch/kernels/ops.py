@@ -1,6 +1,7 @@
-"""Public set-intersection ops with the reference's semantics.
+"""Public kernel ops with the reference's semantics.
 
-Counterpart of ``repro/kernels/ops.py`` (its padded-set half). Impl
+Counterpart of ``repro/kernels/ops.py``: the padded-set intersections,
+flash attention and RMSNorm. Impl
 resolution lives in :mod:`repro_torch.kernels.dispatch`: explicit
 ``impl=`` > ``REPRO_TORCH_<OP>_IMPL`` > the operand's device type. On a
 CUDA tensor ``auto`` launches the hand-written kernel (or raises); the
@@ -11,10 +12,14 @@ impl names them. On a CPU tensor ``auto`` picks a plain version, and
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import dispatch, ref
+from .flash_attention import flash_attention_cuda
 from .gather_intersect import gather_intersect_cuda
+from .rmsnorm import rmsnorm_cuda
 from .sorted_intersect import sorted_intersect_cuda
 
 
@@ -83,3 +88,32 @@ def fused_gather_intersect(cand: torch.Tensor, ids: torch.Tensor,
         return intersect_padded(cand, rows.index_select(0, ids), sentinel,
                                 impl=impl)
     return gather_intersect_cuda(ids, cand, rows, sentinel)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale: Optional[float] = None,
+                    impl: str = "auto") -> torch.Tensor:
+    """q: [B, Hq, Tq, d]; k, v: [B, Hkv, Tk, d] -> [B, Hq, Tq, d].
+
+    ``impl``: auto | cuda (csrc/flash_attention.cu, contiguous inputs,
+    d <= 128) | ref (the plain version). See
+    :func:`repro_torch.kernels.ref.flash_attention` for the masking.
+    """
+    impl = dispatch.resolve_impl("flash_attention", impl,
+                                 platform=q.device.type)
+    if impl == "ref":
+        return ref.flash_attention(q, k, v, causal=causal, scale=scale)
+    return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,
+            impl: str = "auto") -> torch.Tensor:
+    """RMSNorm over the last axis; any leading dims.
+
+    ``impl``: auto | cuda (csrc/rmsnorm.cu, contiguous x) | ref.
+    """
+    impl = dispatch.resolve_impl("rmsnorm", impl, platform=x.device.type)
+    if impl == "ref":
+        return ref.rmsnorm(x, gamma, eps)
+    shape = x.shape
+    return rmsnorm_cuda(x.reshape(-1, shape[-1]), gamma, eps).reshape(shape)

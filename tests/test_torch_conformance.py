@@ -166,18 +166,17 @@ def test_vcbc_counts_exact(pname):
     assert st.count == len(brute_set(pname, jg))
 
 
-def test_fused_fetch_env_toggle(monkeypatch):
+def test_fused_fetch_env_toggle():
+    """The backend alone decides the fetch path: ``torch`` never fuses,
+    ``torch-gpu`` always does, and both give the brute-force count."""
     jg, tg = graphs("pl")
     plan = generate_best_plan(get_pattern("triangle"), tg.stats())
     want = len(brute_set("triangle", jg))
-    monkeypatch.setenv("REPRO_TORCH_FUSED_FETCH", "0")
-    be = TorchGpuBackend(device="cpu")
-    assert drive(be, plan, tg, ExecutorConfig(batch=16)).count == want
-    assert be.fused is False
-    monkeypatch.setenv("REPRO_TORCH_FUSED_FETCH", "1")
-    be = TorchBackend(device="cpu")
-    assert drive(be, plan, tg, ExecutorConfig(batch=16)).count == want
-    assert be.fused is True
+    for cls, fused in ((TorchBackend, False), (TorchGpuBackend, True)):
+        be = cls(device="cpu")
+        st = drive(be, plan, tg, ExecutorConfig(batch=16))
+        assert st.count == want
+        assert be.fused is fused and st.extras["fused_fetch"] is fused
 
 
 def test_cli_matches_line_equals_reference():

@@ -6,7 +6,13 @@ it runs on a machine with a CUDA build of torch alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance 0: the values are int32 set members and counts.
+Tolerance 0 for the set intersections and counts (int32 set members).
+RMSNorm: 1e-5 in f32 (another summation order), one bf16 ulp of the
+output in bf16 (one rounding). Flash attention: 2e-5 with f32 inputs
+(online softmax), 2e-2 abs with bf16 inputs against the f32 plain result
+on the same (upcast) inputs. The smoke models on the card equal the same
+models on the CPU within 2e-4, as tests/test_torch_lm.py holds them to
+the JAX package.
 """
 
 import numpy as np
@@ -111,3 +117,108 @@ def test_backends_on_the_card_equal_the_cpu(card, pname):
             (want.chunks_run, want.chunks_split, want.chunks_retried)
         np.testing.assert_array_equal(st.extras["level_sizes"],
                                       want.extras["level_sizes"])
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    mag = x.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(4, 896), (1000, 896), (7, 1001),
+                                    (3, 8192), (5, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_vs_plain(card, rows, d, dtype):
+    from repro_torch.kernels import rmsnorm as rn
+    gen = torch.Generator(device=card).manual_seed(rows + d)
+    x = (torch.randn((rows, d), generator=gen, device=card) * 3).to(dtype)
+    g = torch.randn((d,), generator=gen, device=card).to(dtype)
+    before = rn.launches
+    got = ops.rmsnorm(x, g, eps=1e-6)
+    assert rn.launches == before + 1 and got.dtype == dtype
+    want = ref.rmsnorm(x, g, eps=1e-6)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= bf16_ulp(want)).all()), float(err.max())
+    with pytest.raises(ValueError, match="contiguous"):
+        rn.rmsnorm_cuda(x.t(), g)
+    with pytest.raises(ValueError, match="gamma"):
+        rn.rmsnorm_cuda(x, g.float() if dtype != torch.float32 else g[:-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,causal", [
+    (2, 14, 2, 256, 256, 64, True),      # qwen2-0.5b heads
+    (1, 16, 2, 192, 192, 128, True),     # qwen2.5-3b heads
+    (1, 4, 2, 1000, 1000, 64, True),     # ragged tails
+    (1, 4, 2, 256, 1024, 64, True),      # decode offset
+    (1, 4, 2, 256, 128, 64, True),       # rows that see no key
+    (2, 4, 4, 130, 70, 32, False),       # not causal, ragged
+    (1, 7, 1, 33, 33, 16, True),         # qwen2 smoke heads
+    (1, 2, 1, 64, 100, 8, True),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_vs_plain(card, b, hq, hkv, tq, tk, d,
+                                         causal, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=card).manual_seed(tq * 7 + tk + d)
+
+    def rand(h, t):
+        return torch.randn((b, h, t, d), generator=gen,
+                           device=card).to(dtype)
+
+    q, k, v = rand(hq, tq), rand(hkv, tk), rand(hkv, tk)
+    before = fa.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert fa.launches == before + 1 and got.dtype == dtype
+    want = ref.flash_attention(q.float(), k.float(), v.float(),
+                               causal=causal)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want, rtol=0 if tol == 2e-2
+                               else tol, atol=tol)
+    if causal and tk < tq:                     # the mean-of-V rows
+        mean_v = v.float().mean(dim=2, keepdim=True)
+        rep = mean_v.repeat_interleave(hq // hkv, dim=1)
+        torch.testing.assert_close(got[:, :, :tq - tk].float(),
+                                   rep.expand(-1, -1, tq - tk, -1),
+                                   rtol=0, atol=tol)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_cuda(q.transpose(1, 2), k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen2.5-3b",
+                                  "phi4-mini-3.8b"])
+def test_smoke_lm_on_the_card_equals_the_cpu(card, arch):
+    """prefill_step and a teacher-forced serve loop of the f32 smoke model
+    on the card (the kernels) == the same weights on the CPU (the plain
+    versions); launch counts per forward and per decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models import transformer as ttf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).smoke().model_cfg
+    cpu = ttf.init_params(cfg, seed=0, device="cpu")
+    gpu = ttf.Transformer(cfg, torch.Generator(device=card))
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 24)))
+    fa.launches = rn.launches = 0
+    got = ttf.prefill_step(gpu, toks.to(card))
+    assert (fa.launches, rn.launches) == (cfg.n_layers, 2 * cfg.n_layers + 1)
+    torch.testing.assert_close(got.cpu(), ttf.prefill_step(cpu, toks),
+                               rtol=2e-4, atol=2e-4)
+    c_cpu = ttf.init_caches(cfg, 2, 24, device="cpu")
+    c_gpu = ttf.init_caches(cfg, 2, 24, device=card)
+    for i in range(toks.shape[1]):
+        fa.launches = rn.launches = 0
+        lg, c_gpu = ttf.decode_step(gpu, c_gpu, toks[:, i:i + 1].to(card), i)
+        assert (fa.launches, rn.launches) == (0, 2 * cfg.n_layers + 1)
+        want, c_cpu = ttf.decode_step(cpu, c_cpu, toks[:, i:i + 1], i)
+        torch.testing.assert_close(lg.cpu(), want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(lg.cpu(), ttf.prefill_step(cpu, toks),
+                               rtol=2e-4, atol=2e-4)

@@ -194,14 +194,21 @@ def test_dispatch_order_explicit_env_device(monkeypatch):
 
 
 def test_fused_fetch_toggle(monkeypatch):
-    monkeypatch.delenv("REPRO_TORCH_FUSED_FETCH", raising=False)
-    monkeypatch.setenv("REPRO_FUSED_FETCH", "1")          # the JAX toggle
-    assert dispatch.fused_fetch_enabled() is False
-    assert dispatch.fused_fetch_enabled(True) is True
-    monkeypatch.setenv("REPRO_TORCH_FUSED_FETCH", "on")
-    assert dispatch.fused_fetch_enabled() is True
-    monkeypatch.setenv("REPRO_TORCH_FUSED_FETCH", "0")
-    assert dispatch.fused_fetch_enabled(True) is False
+    """No environment variable moves a backend off its own fetch path."""
+    from repro_torch.core.executor import make_executor
+    from repro_torch.core.pattern import get_pattern
+    from repro_torch.core.plangen import generate_best_plan
+    from repro_torch.graph.generate import erdos_renyi
+    g = erdos_renyi(30, 60, seed=1)
+    plan = generate_best_plan(get_pattern("triangle"), g.stats())
+    for var in ("REPRO_TORCH_FUSED_FETCH", "REPRO_FUSED_FETCH"):
+        for val in ("0", "1"):
+            monkeypatch.setenv(var, val)
+            for engine, fused in (("torch", False), ("torch-gpu", True)):
+                st = make_executor(engine, device="cpu").run(plan, g,
+                                                             batch=8)
+                assert st.extras["fused_fetch"] is fused
+        monkeypatch.delenv(var)
 
 
 def test_cuda_impl_on_cpu_tensors_raises(monkeypatch):

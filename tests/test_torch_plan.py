@@ -114,6 +114,8 @@ def test_sources_import_neither_jax_nor_repro():
         paths += [os.path.join(dirpath, f) for f in files
                   if f.endswith(".py")]
     assert len(paths) > 10
+    for sub in ("layers", "models", "configs"):
+        assert any(os.sep + sub + os.sep in p for p in paths), sub
     for p in paths:
         with open(p) as fh:
             hit = FORBIDDEN.search(fh.read())
@@ -137,8 +139,12 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert "repro_torch.launch.enumerate" in mods
-    assert "repro_torch.core.engine_torch" in mods
+    for mod in ("launch.enumerate", "launch.serve", "core.engine_torch",
+                "layers.attention", "layers.common", "layers.mlp",
+                "layers.rope", "models.transformer", "configs.qwen2_0_5b",
+                "configs.qwen2_5_3b", "configs.phi4_mini_3_8b",
+                "kernels.flash_attention", "kernels.rmsnorm"):
+        assert f"repro_torch.{mod}" in mods
 
 
 def test_entry_points_without_a_device_raise_when_no_card(monkeypatch):
