@@ -31,13 +31,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the device's busy share and its kernels by time for one prefill and a
    short serve loop.
 
-Phase 2 also holds rmsnorm and flash_attention against their plain
+Phase 1 also counts the HGMMA (``wgmma``) instructions in the flash
+library's SASS (``cuobjdump``) and fails if there are none. Phase 2 times
+``sorted_intersect`` on b with holes anywhere and on b with holes only in
+its tail, and also holds rmsnorm and flash_attention against their plain
 versions (rmsnorm: 1e-5 in f32, one bf16 ulp of the output in bf16;
 flash: 2e-5 with f32 inputs, 2e-2 abs with bf16 inputs against the f32
-plain result) and times them at the prefill shape beside the plain
-version, the bound (the larger of bytes over the memory rate and flops
-over the dense bf16 tensor-core rate) and one PyTorch library call
-(``F.rms_norm``, ``F.scaled_dot_product_attention``), timed only here.
+plain result, on contiguous tensors and on ``[B, H, T, d]`` views of
+``[B, T, H, d]`` ones) and times them at the prefill shape beside the
+plain version, the bound (the larger of bytes over the memory rate and
+flops over the dense bf16 tensor-core rate) and one PyTorch library call
+(``F.rms_norm``, ``F.scaled_dot_product_attention``), timed only here;
+flash also on the layer's views and at d = 128, each beside its bound.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It exits non-zero with no
@@ -164,12 +169,23 @@ def phase_kernels(dev, bandwidth: float) -> dict:
     out = {}
 
     # -- sorted_intersect: a with holes anywhere, b a punched subset of a
-    # superset of a's values (so rows overlap), widths equal and mixed
+    # superset of a's values (so rows overlap), widths equal and mixed, and
+    # widths that are not multiples of 4 (the scalar-load path); then b
+    # with holes only in its tail, as every DBQ adjacency row has them
     worst = 0
-    for Da, Db in ((3968, 3968), (640, 640), (3968, 640), (640, 3968)):
+    for Da, Db, tail in ((3968, 3968, False), (3968, 3968, True),
+                         (640, 640, False), (3968, 640, False),
+                         (640, 3968, False), (641, 641, False)):
         base = padded_sets(gen, B, max(Da, Db), n, 0.0, tail=False)
         a = punch(gen, base[:, :Da], n, 0.3)
-        b = punch(gen, base[:, -Db:] if Db < Da else base[:, :Db], n, 0.4)
+        if tail:             # the superset's prefix, holes after it
+            b = base[:, :Db].sort(dim=1).values
+            keep = torch.randint(Db // 2, Db + 1, (B, 1), generator=gen,
+                                 device=dev)
+            b.masked_fill_(torch.arange(Db, device=dev)[None, :] >= keep, n)
+        else:
+            b = punch(gen, base[:, -Db:] if Db < Da else base[:, :Db], n,
+                      0.4)
         got = si.sorted_intersect_cuda(a, b, n)
         want = plain_rows(lambda lo, hi: ref.sorted_intersect(
             a[lo:hi], b[lo:hi], n), B, Da * Db)
@@ -177,21 +193,26 @@ def phase_kernels(dev, bandwidth: float) -> dict:
         err = int((got.long() - want.long()).abs().max())
         same = torch.equal(got, want)
         kept = int((got != n).sum())
-        log(f"  sorted_intersect B={B} Da={Da} Db={Db}: bit-equal={same} "
-            f"max_abs_err={err} kept={kept}")
+        holes = "tail-only b" if tail else "holes anywhere"
+        log(f"  sorted_intersect B={B} Da={Da} Db={Db} {holes}: "
+            f"bit-equal={same} max_abs_err={err} kept={kept}")
         if not same or kept == 0:
             raise RuntimeError(f"sorted_intersect disagrees with its plain "
-                               f"version at Da={Da} Db={Db}")
+                               f"version at Da={Da} Db={Db} ({holes})")
         worst = max(worst, err)
         if (Da, Db) == (3968, 3968):
             ms = cuda_time_ms(lambda: si.sorted_intersect_cuda(a, b, n), 10)
-            plain_ms = cuda_time_ms(lambda: plain_rows(
-                lambda lo, hi: ref.sorted_intersect(a[lo:hi], b[lo:hi], n),
-                B, Da * Db), 1)
             nbytes = B * (Da + Db) * 4 + B * Da * 4
-            out["sorted_intersect"] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=nbytes / bandwidth * 1e3,
-                shape=f"B={B} Da={Da} Db={Db}")
+            bound_ms = nbytes / bandwidth * 1e3
+            log(f"  sorted_intersect ({holes}): kernel {ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms, {100 * bound_ms / ms:.1f}% of bound")
+            if not tail:     # the line's number: the harder layout
+                plain_ms = cuda_time_ms(lambda: plain_rows(
+                    lambda lo, hi: ref.sorted_intersect(a[lo:hi], b[lo:hi],
+                                                        n), B, Da * Db), 1)
+                out["sorted_intersect"] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    shape=f"B={B} Da={Da} Db={Db} holes anywhere")
         del a, b, base, got, want
     out["sorted_intersect"]["max_abs_err"] = worst
 
@@ -485,18 +506,24 @@ def phase_lm_kernels(dev, bandwidth: float, peak: float) -> dict:
     del sets
 
     # -- flash_attention
-    cases = [  # (B, Hq, Hkv, Tq, Tk, d, causal)
-        (LM_BATCH, 14, 2, LM_SEQ, LM_SEQ, 64, True),     # the prefill shape
-        (1, 16, 2, 2048, 2048, 128, True),
-        (1, 14, 2, 1000, 1000, 64, True),                # ragged tails
-        (1, 14, 2, 256, 1024, 64, True),                 # decode offset
-        (1, 14, 2, 256, 128, 64, True),                  # rows see no key
-        (2, 14, 2, 512, 384, 64, False),
+    cases = [  # (B, Hq, Hkv, Tq, Tk, d, causal, strided)
+        (LM_BATCH, 14, 2, LM_SEQ, LM_SEQ, 64, True, False),  # prefill shape
+        (LM_BATCH, 14, 2, LM_SEQ, LM_SEQ, 64, True, True),   # as the layer
+        (1, 16, 2, 2048, 2048, 128, True, False),
+        (1, 16, 2, 2048, 2048, 128, True, True),
+        (1, 14, 2, 1000, 1000, 64, True, False),             # ragged tails
+        (1, 14, 2, 1000, 1000, 64, True, True),
+        (1, 14, 2, 256, 1024, 64, True, False),              # decode offset
+        (1, 14, 2, 256, 128, 64, True, False),               # rows see no key
+        (2, 14, 2, 512, 384, 64, False, False),
     ]
     worst = 0.0
-    for b, hq, hkv, tq, tk, d, causal in cases:
+    for b, hq, hkv, tq, tk, d, causal, strided in cases:
         for dtype in (torch.bfloat16, torch.float32):
             def rand(h, t):
+                if strided:          # [B, H, T, d] views of [B, T, H, d]
+                    return torch.randn((b, t, h, d), generator=gen,
+                                       device=dev).to(dtype).transpose(1, 2)
                 return torch.randn((b, h, t, d), generator=gen,
                                    device=dev).to(dtype)
             q, k, v = rand(hq, tq), rand(hkv, tk), rand(hkv, tk)
@@ -512,30 +539,55 @@ def phase_lm_kernels(dev, bandwidth: float, peak: float) -> dict:
                 ok = err <= 2e-2
                 worst = max(worst, err)
             log(f"  flash_attention B={b} Hq={hq} Hkv={hkv} Tq={tq} "
-                f"Tk={tk} d={d} causal={causal} {str(dtype)[6:]}: "
-                f"max_abs_err {err:.3g}: {'ok' if ok else 'FAIL'}")
+                f"Tk={tk} d={d} causal={causal} strided={strided} "
+                f"{str(dtype)[6:]}: max_abs_err {err:.3g}: "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise RuntimeError("flash_attention disagrees with its plain "
                                    f"version at {(b, hq, hkv, tq, tk, d)}")
             del q, k, v, got, want
+    def flash_bound(b, hq, hkv, t, d):
+        visible = t * (t + 1) // 2                   # causal pairs per head
+        flops = 4 * b * hq * d * visible
+        nbytes = (2 * b * hq * t * d + 2 * b * hkv * t * d) * 2
+        return (max(nbytes / bandwidth, flops / peak) * 1e3,
+                "operations" if flops / peak > nbytes / bandwidth
+                else "bytes")
+
+    def bf16_qkv(b, hq, hkv, t, d, strided):
+        def rand(h):
+            if strided:
+                return torch.randn((b, t, h, d), generator=gen, device=dev
+                                   ).bfloat16().transpose(1, 2)
+            return torch.randn((b, h, t, d), generator=gen,
+                               device=dev).bfloat16()
+        return rand(hq), rand(hkv), rand(hkv)
+
     b, hq, hkv, t, d = LM_BATCH, 14, 2, LM_SEQ, 64
-    q = torch.randn((b, hq, t, d), generator=gen, device=dev).bfloat16()
-    k = torch.randn((b, hkv, t, d), generator=gen, device=dev).bfloat16()
-    v = torch.randn((b, hkv, t, d), generator=gen, device=dev).bfloat16()
-    visible = t * (t + 1) // 2                       # causal pairs per head
-    flops = 4 * b * hq * d * visible
-    nbytes = (2 * b * hq * t * d + 2 * b * hkv * t * d) * 2
+    q, k, v = bf16_qkv(b, hq, hkv, t, d, False)
+    bound_ms, bound_by = flash_bound(b, hq, hkv, t, d)
     out["flash_attention"] = dict(
-        ms=cuda_time_ms(lambda: fa.flash_attention_cuda(q, k, v), 5),
+        ms=cuda_time_ms(lambda: fa.flash_attention_cuda(q, k, v), 20),
         plain_ms=cuda_time_ms(lambda: ref.flash_attention(q, k, v), 2),
         library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), 20),
-        bound_ms=max(nbytes / bandwidth, flops / peak) * 1e3,
-        bound_by="operations" if flops / peak > nbytes / bandwidth
-        else "bytes",
+        bound_ms=bound_ms, bound_by=bound_by,
         max_abs_err=worst, shape=f"q[{b},{hq},{t},{d}] kv[{b},{hkv},{t},{d}]"
                                  " bf16 causal")
     del q, k, v
+    # the layer's views of [B, T, H, d] activations, and d = 128, each
+    # beside its own bound
+    for shape, strided in (((b, hq, hkv, t, d), True),
+                           ((1, 16, 2, 2048, 128), False)):
+        q, k, v = bf16_qkv(*shape, strided)
+        ms = cuda_time_ms(lambda: fa.flash_attention_cuda(q, k, v), 20)
+        sdpa_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20)
+        bms, by = flash_bound(*shape)
+        log(f"  flash_attention {shape} bf16 causal strided={strided}: "
+            f"kernel {ms:.4f} ms, SDPA {sdpa_ms:.4f} ms, bound {bms:.4f} ms "
+            f"({by}), {100 * bms / ms:.1f}% of bound")
+        del q, k, v
     for name in ("rmsnorm", "flash_attention"):
         r = out[name]
         log(f"  {name} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
@@ -746,6 +798,16 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  [{name}] {line.strip()}")
+    # the bf16 flash body must run on the tensor cores: its SASS holds
+    # HGMMA (wgmma) instructions
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True).stdout
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    log(f"  [flash_attention] {hgmma} HGMMA instructions in the SASS")
+    if hgmma == 0:
+        raise RuntimeError("the flash library has no HGMMA instruction")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

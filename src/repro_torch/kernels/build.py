@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.POINTER(ctypes.c_longlong)
 #: library name -> (launch symbol, argtypes). Pointers and the stream are
 #: c_void_p, so ctypes never cuts a 64-bit address to a 32-bit int. A
 #: float kernel takes a dtype code (``DTYPE_CODES``) and dispatches to a
@@ -39,11 +40,11 @@ SIGNATURES: Dict[str, Tuple[str, List[type]]] = {
                          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # (x, gamma, out, R, d, eps, dtype, device, stream)
     "rmsnorm": ("rmsnorm_launch", [_P, _P, _P, _I, _I, _F, _I, _I, _P]),
-    # (q, k, v, out, B, Hq, Hkv, Tq, Tk, d, causal, scale, dtype, device,
-    #  stream)
+    # (q, k, v, out, B, Hq, Hkv, Tq, Tk, d, strides, causal, scale, dtype,
+    #  device, stream); strides: 12 int64, (batch, head, row) of q, k, v, out
     "flash_attention": ("flash_attention_launch",
-                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                         _I, _P]),
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, _F,
+                         _I, _I, _P]),
 }
 
 #: dtype code passed to a float kernel (``csrc/*.cu`` switch on it)

@@ -95,8 +95,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     impl: str = "auto") -> torch.Tensor:
     """q: [B, Hq, Tq, d]; k, v: [B, Hkv, Tk, d] -> [B, Hq, Tq, d].
 
-    ``impl``: auto | cuda (csrc/flash_attention.cu, contiguous inputs,
-    d <= 128) | ref (the plain version). See
+    ``impl``: auto | cuda (csrc/flash_attention.cu: strided views with a
+    contiguous last dimension and 16-byte aligned strides, d <= 128) | ref
+    (the plain version). See
     :func:`repro_torch.kernels.ref.flash_attention` for the masking.
     """
     impl = dispatch.resolve_impl("flash_attention", impl,

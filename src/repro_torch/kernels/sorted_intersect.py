@@ -2,10 +2,12 @@
 
 Replaces the Pallas TPU kernel ``sorted_intersect_pallas``
 (``src/repro/kernels/sorted_intersect.py``). The kernel is memory-bound:
-it reads ``B*(Da+Db)*4`` bytes and writes ``B*Da*4``; one block per row
-stages ``b``'s valid entries in shared memory, compacted in order, and
-binary-searches each ``a`` lane there (see the source's header). Its plain
-version is :func:`repro_torch.kernels.ref.sorted_intersect`.
+it reads ``B*(Da+Db)*4`` bytes and writes ``B*Da*4``. One block per row
+loads both rows with 16-byte loads before its first barrier, keeps ``b``
+as it is when its holes are all in its tail (else compacts it with one
+block scan) and looks each ``a`` entry up through a bucket table over
+``b``'s staged entries (see the source's header). Its plain version is
+:func:`repro_torch.kernels.ref.sorted_intersect`.
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ from . import build
 #: launches of the CUDA kernel by :func:`sorted_intersect_cuda` since the
 #: last reset (callers set it to 0)
 launches = 0
+
+#: the widest ``b`` the kernel stages in shared memory (``kMaxDb``)
+MAX_DB = 48 * 1024
 
 
 def _check_int32_cuda(name: str, t: torch.Tensor, ndim: int) -> None:
@@ -35,7 +40,8 @@ def sorted_intersect_cuda(a: torch.Tensor, b: torch.Tensor,
     """``a ∩ b`` per row, kept in ``a``'s slots, on the card.
 
     a: int32[B, Da], b: int32[B, Db] contiguous CUDA padded sets (widths may
-    differ) -> int32[B, Da]. Raises on any other input.
+    differ, ``Db <= MAX_DB``) -> int32[B, Da]. Raises on any other
+    input.
     """
     global launches
     _check_int32_cuda("a", a, 2)
@@ -43,6 +49,9 @@ def sorted_intersect_cuda(a: torch.Tensor, b: torch.Tensor,
     if a.shape[0] != b.shape[0] or a.device != b.device:
         raise ValueError(f"a{tuple(a.shape)} and b{tuple(b.shape)} need a "
                          "shared batch on one device")
+    if b.shape[1] > MAX_DB:
+        raise ValueError(f"Db = {b.shape[1]}: a row of b must fit in shared "
+                         f"memory (Db <= {MAX_DB})")
     out = torch.empty_like(a)
     if a.numel() == 0:
         return out

@@ -7,7 +7,8 @@ with the MoE/MLA slice). Layouts as in the reference: activations
 * ``full_attention`` sends the full-sequence pass to the flash kernel
   (``kernels/ops.flash_attention``) with the **unexpanded** K and V: the
   kernel maps each q head to its KV head itself. The reference expands KV
-  first (``_expand_kv``); the results are the same.
+  first (``_expand_kv``); the results are the same. q, k and v go in as
+  ``[B, H, T, d]`` views of the ``[B, T, H, d]`` activations, uncopied.
 * ``decode_attention`` stays plain torch, as the reference's is plain jnp:
   q heads are grouped against the unexpanded cache.
 * The cache is updated in place (the reference returns new arrays), which
@@ -54,11 +55,12 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = True, impl: str = "auto",
                    scale: Optional[float] = None) -> torch.Tensor:
     """q: [B, T, Hq, d]; k, v: [B, T, Hkv, d] -> [B, T, Hq, d] through the
-    flash op (``impl``: auto | cuda | ref) on head-major copies."""
-    out = kops.flash_attention(q.transpose(1, 2).contiguous(),
-                               k.transpose(1, 2).contiguous(),
-                               v.transpose(1, 2).contiguous(),
-                               causal=causal, scale=scale, impl=impl)
+    flash op (``impl``: auto | cuda | ref) on head-major views, not copies:
+    the kernel reads the strided views and writes its output in q's
+    layout, so the result is a ``[B, T, Hq, d]`` tensor in memory."""
+    out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=causal,
+                               scale=scale, impl=impl)
     return out.transpose(1, 2)
 
 

@@ -7,6 +7,9 @@ it runs on a machine with a CUDA build of torch alone:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance 0 for the set intersections and counts (int32 set members).
+Flash attention takes strided ``[B, H, T, d]`` views (the GQA layer's
+transposes of ``[B, T, H, d]`` activations) and raises on views TMA
+cannot read.
 RMSNorm: 1e-5 in f32 (another summation order), one bf16 ulp of the
 output in bf16 (one rounding). Flash attention: 2e-5 with f32 inputs
 (online softmax), 2e-2 abs with bf16 inputs against the f32 plain result
@@ -52,22 +55,40 @@ def card():
     return torch.device("cuda", 0)
 
 
+def _tail_only(rows, n):
+    """Valid ascending entries first, holes only in the tail (a DBQ
+    adjacency row's shape); row 1 all holes."""
+    out = np.sort(rows, axis=1).astype(np.int32)
+    out[1] = n
+    return out
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["mid-row holes", "tail-only"])
 @pytest.mark.parametrize("da,db", [(128, 128), (384, 128), (128, 640),
-                                   (3968, 3968)])
-def test_sorted_intersect_kernel_bit_equal(card, da, db):
+                                   (3968, 3968), (640, 3968), (3968, 640),
+                                   (641, 641), (3967, 3967), (3967, 641),
+                                   (5000, 9000)])
+def test_sorted_intersect_kernel_bit_equal(card, da, db, layout):
+    """b with holes anywhere (compacted) or only in its tail (kept as
+    staged), all-sentinel rows, Da != Db, widths that are not multiples of
+    4 (the scalar-load path) and rows wider than one round: bit-equal to
+    the plain version."""
     from repro_torch.kernels import sorted_intersect as si
-    rng = np.random.default_rng(da * 7 + db)
+    rng = np.random.default_rng(da * 7 + db + len(layout))
     n = 4 * max(da, db)
-    a = torch.from_numpy(_holes(rng, _rand_padded_sets(rng, 64, da, n),
-                                n)).to(card)
-    b = torch.from_numpy(_holes(rng, _rand_padded_sets(rng, 64, db, n),
-                                n)).to(card)
+    a = _holes(rng, _rand_padded_sets(rng, 64, da, n), n)
+    b = _rand_padded_sets(rng, 64, db, n)
+    b[2:10] = n                                  # rows 2..9 overlap a's
+    b[2:10, :min(da, db)] = np.sort(a[2:10, :min(da, db)], axis=1)
+    b = _tail_only(b, n) if layout == "tail-only" else _holes(rng, b, n)
+    a, b = torch.from_numpy(a).to(card), torch.from_numpy(b).to(card)
     before = si.launches
     got = ops.intersect_padded(a, b, n)
     assert si.launches == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   ref.sorted_intersect(a, b, n).cpu().numpy())
+    assert int((got != n).sum()) > 0
     with pytest.raises(ValueError, match="contiguous"):
         si.sorted_intersect_cuda(a[:, ::2], b[:, ::2], n)
     with pytest.raises(ValueError, match="int32"):
@@ -185,8 +206,48 @@ def test_flash_attention_kernel_vs_plain(card, b, hq, hkv, tq, tk, d,
         torch.testing.assert_close(got[:, :, :tq - tk].float(),
                                    rep.expand(-1, -1, tq - tk, -1),
                                    rtol=0, atol=tol)
-    with pytest.raises(ValueError, match="contiguous"):
-        fa.flash_attention_cuda(q.transpose(1, 2), k, v)
+    # strided views are taken (test_flash_attention_on_strided_views);
+    # what TMA cannot read raises: a last dimension that is not contiguous,
+    # a base that is not 16-byte aligned
+    with pytest.raises(ValueError, match="stride 1"):
+        fa.flash_attention_cuda(q.transpose(2, 3), k, v)
+    flat = torch.zeros(q.numel() + 1, dtype=dtype, device=card)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_cuda(flat[1:].view(q.shape), k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("tq,tk", [(1, 1), (127, 127), (129, 129),
+                                   (1000, 1000), (1, 1000), (127, 1000),
+                                   (1000, 129)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_on_strided_views(card, d, tq, tk, dtype):
+    """[B, H, T, d] views of [B, T, H, d] tensors, as the GQA layer passes
+    them (ragged against the 128-row tiles; (1, 1000) and (127, 1000) are
+    decode offsets, (1000, 129) has rows that see no key): equal to the
+    contiguous call and to the plain version; the output keeps q's
+    [B, T, H, d] memory order."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=card).manual_seed(tq * 3 + tk + d)
+    b, hq, hkv = 2, 6, 2
+
+    def rand(h, t):
+        return torch.randn((b, t, h, d), generator=gen,
+                           device=card).to(dtype).transpose(1, 2)
+
+    q, k, v = rand(hq, tq), rand(hkv, tk), rand(hkv, tk)
+    before = fa.launches
+    got = fa.flash_attention_cuda(q, k, v)
+    assert fa.launches == before + 1
+    assert got.transpose(1, 2).is_contiguous()   # [B, T, H, d] memory
+    same = fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                   v.contiguous())
+    want = ref.flash_attention(q.float(), k.float(), v.float())
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), same.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(got.float(), want, rtol=0 if tol == 2e-2
+                               else tol, atol=tol)
 
 
 @pytest.mark.cuda
