@@ -11,9 +11,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    values are int32 set members), with each kernel's time beside the plain
    version's and the bound (least time at the card's memory bandwidth);
 3. mid-size exactness on ``powerlaw(20_000, 8)``: ``torch``, ``torch-gpu``
-   and the plain versions forced by explicit impl give identical counts and
-   frontier sizes (and, for the house, match sets); one run with tiny
-   capacities forces the adaptive split;
+   and (for the triangle and the 4-clique) the plain versions forced by
+   explicit impl give identical counts and frontier sizes (and, for the
+   house, match sets); one run with tiny capacities forces the adaptive
+   split;
 4. the main path at full size: triangle over every start vertex of
    ``powerlaw(1_000_000, 8)`` (padded rows ``[1_000_001, 3968]`` int32 on
    the card) through ``torch`` and ``torch-gpu``; both counts must equal an
@@ -29,7 +30,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and the launch counts must be 24 flash_attention and 49 rmsnorm per
    prefill forward, 0 and 49 per decode step. ``torch.profiler`` gives
    the device's busy share and its kernels by time for one prefill and a
-   short serve loop.
+   short serve loop;
+6. out-of-core B-BENU (``oocache``: host row shards, a device row cache of
+   12% of the rows plus 4% pinned hot rows): on phase 3's graph it equals
+   the ``torch`` runs (counts, frontier sizes, the house match array), at
+   zero capacity and under tiny caps; on phase 4's graph the triangle
+   over all starts equals the independent count with prefetch on and off,
+   the device holding under a quarter of the rows; cache counters, host
+   seconds in ``lookup`` and (for the second run) the profiled busy share
+   are printed;
+7. streaming S-BENU: on a mid-size ``edge_stream`` (``SB_MID``) every step
+   of ``sbenu-torch`` (device and host snapshot storage), the ``sbenu``
+   interpreter and a tiny-caps run that splits equals the brute snapshot
+   diff on five patterns; on the full stream (``SB_FULL``, widths pinned)
+   every step of q1' equals an independent directed-3-cycle count from
+   the edge keys (``cycle_trace``: sum((A A) o A^T), per reported match as
+   fixed at mid size) and q2' on the kernel equals q2' on the binary
+   probe, with one snapshot rebuild over the stream.
 
 Phase 1 also counts the HGMMA (``wgmma``) instructions in the flash
 library's SASS (``cuobjdump``) and fails if there are none. Phase 2 times
@@ -38,8 +55,9 @@ its tail, and also holds rmsnorm and flash_attention against their plain
 versions (rmsnorm: 1e-5 in f32, one bf16 ulp of the output in bf16;
 flash: 2e-5 with f32 inputs, 2e-2 abs with bf16 inputs against the f32
 plain result, on contiguous tensors and on ``[B, H, T, d]`` views of
-``[B, T, H, d]`` ones) and times them at the prefill shape beside the
-plain version, the bound (the larger of bytes over the memory rate and
+``[B, T, H, d]`` ones) and times them at the prefill shape (rmsnorm and
+``F.rms_norm`` as the median of ``RMS_ROUNDS`` alternating rounds) beside
+the plain version, the bound (the larger of bytes over the memory rate and
 flops over the dense bf16 tensor-core rate) and one PyTorch library call
 (``F.rms_norm``, ``F.scaled_dot_product_attention``), timed only here;
 flash also on the layer's views and at d = 128, each beside its bound.
@@ -51,9 +69,12 @@ result when there is no CUDA device or no ``src/repro_torch`` beside it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -81,6 +102,31 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_CACHE = 4, 16, 32, 128
 # must agree within LM_TOL_FLOORS * floor
 LM_TOL_FLOORS = 2.0
 MID_N, MID_BATCH, MID_CAPS = 20_000, 64, (8192, 16384, 32768, 65536)
+# rmsnorm and F.rms_norm are each timed as the median of this many rounds
+RMS_ROUNDS = 7
+# phase 6: the device row cache sized as the JAX gate sizes it
+OOC_CACHE_FRAC, OOC_HOT_FRAC = 0.12, 0.04
+# phase 7: (n, m_init, batch, steps) of the mid-size stream (the largest
+# at which the brute snapshot diff stays near 30 s) and the full stream
+SBENU_PATTERNS = ("dtoy", "q1'", "q2'", "q3'", "q5'")
+SB_MID = (1000, 2000, 300, 3)
+SB_FULL = (1_000_000, 8_000_000, 100_000, 3)
+SB_DELETE, SB_BATCH = 0.3, 4096
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """Cyclic GC off while the full-size graphs and streams (tens of
+    millions of Python sets and ints) are built and walked: collection
+    over them costs minutes and frees nothing. On exit the survivors are
+    frozen out of later collections and GC runs again, so the LM phase
+    times its host loop under the default regime."""
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.freeze()
+        gc.enable()
 
 
 def log(*args) -> None:
@@ -315,13 +361,15 @@ def independent_triangles(graph, dev) -> int:
 # ---------------------------------------------------------------------------
 
 
-def run_backend(engine, plan, graph, dev, **cfg):
+def run_backend(engine, plan, graph, dev, backend_kw=None, **cfg):
     from repro_torch.core.executor import make_executor
     from repro_torch.kernels import gather_intersect as gi
     from repro_torch.kernels import sorted_intersect as si
     import torch
     impl = cfg.pop("plain", None)
-    kwargs = {"gather_intersect_impl": impl} if impl else {}
+    kwargs = dict(backend_kw or {})
+    if impl:
+        kwargs["gather_intersect_impl"] = impl
     ex = make_executor(engine, device=dev, **kwargs)
     if impl:
         cfg["intersect_impl"] = impl
@@ -358,6 +406,7 @@ def phase_mid(dev) -> None:
     log(f"  powerlaw({MID_N}, 8): {g.m} edges, max degree {g.deg.max()}, "
         f"{time.perf_counter() - t0:.1f} s")
     tri = independent_triangles(g, dev)
+    torch_runs = {}
     for pname in ("triangle", "square", "clique4", "house"):
         plan = generate_best_plan(get_pattern(pname), g.stats())
         collect = pname == "house"
@@ -384,6 +433,7 @@ def phase_mid(dev) -> None:
             raise RuntimeError(f"{pname}: torch never launched a kernel")
         if pname == "triangle" and base.count != tri:
             raise RuntimeError(f"triangle {base.count} != independent {tri}")
+        torch_runs[pname] = (plan, cfg, runs["torch"])
     plan = generate_best_plan(get_pattern("triangle"), g.stats())
     st = run_backend("torch-gpu", plan, g, dev, batch=MID_BATCH,
                      caps=(128, 32), max_retries=12)
@@ -391,6 +441,7 @@ def phase_mid(dev) -> None:
     if st.count != tri or st.chunks_split == 0:
         raise RuntimeError("forced-overflow triangle run is not exact/split")
     log(f"  mid-size exact: triangle == independent count {tri}")
+    return g, tri, torch_runs
 
 
 def phase_full(dev) -> dict:
@@ -424,7 +475,7 @@ def phase_full(dev) -> dict:
     for k, v in launches.items():
         if v == 0:
             raise RuntimeError(f"the main path never launched {k}")
-    return launches
+    return launches, g, want
 
 
 # ---------------------------------------------------------------------------
@@ -494,13 +545,25 @@ def phase_lm_kernels(dev, bandwidth: float, peak: float) -> dict:
              torch.randn((d,), generator=gen, device=dev).to(torch.bfloat16))
             for _ in range(4)]
     nbytes = (2 * rows * d + d) * 2
+    # the kernel and F.rms_norm in RMS_ROUNDS rounds that alternate which
+    # goes first; each keeps the median of its rounds
+    timed = {"kernel": rotating(lambda x, g: rn.rmsnorm_cuda(x, g, 1e-6),
+                                sets),
+             "F.rms_norm": rotating(
+                 lambda x, g: F.rms_norm(x, (d,), g, 1e-6), sets)}
+    rounds = {k: [] for k in timed}
+    for r in range(RMS_ROUNDS):
+        for k in (list(timed) if r % 2 == 0 else list(timed)[::-1]):
+            rounds[k].append(cuda_time_ms(timed[k], 40))
+    for k, v in rounds.items():
+        log(f"  rmsnorm [{rows}, {d}] bf16 {k}: rounds "
+            f"{[round(t, 4) for t in v]} ms, median "
+            f"{statistics.median(v):.4f} ms")
     out["rmsnorm"] = dict(
-        ms=cuda_time_ms(rotating(lambda x, g: rn.rmsnorm_cuda(x, g, 1e-6),
-                                 sets), 40),
+        ms=statistics.median(rounds["kernel"]),
         plain_ms=cuda_time_ms(rotating(lambda x, g: ref.rmsnorm(x, g, 1e-6),
                                        sets), 8),
-        library_ms=cuda_time_ms(rotating(
-            lambda x, g: F.rms_norm(x, (d,), g, 1e-6), sets), 40),
+        library_ms=statistics.median(rounds["F.rms_norm"]),
         bound_ms=nbytes / bandwidth * 1e3, bound_by="bytes",
         max_abs_err=worst, shape=f"[{rows}, {d}] bf16")
     del sets
@@ -773,6 +836,351 @@ def phase_lm(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: out-of-core B-BENU (host row store + bounded device row cache)
+# ---------------------------------------------------------------------------
+
+
+def ooc_kw(n: int, **kw) -> dict:
+    """The JAX gate's sizing (test_oocache_conformance_bounded_device_cache):
+    an LRU slab of 12% and a pinned hot set of 4% of the rows."""
+    return dict(cache_rows=int(OOC_CACHE_FRAC * n),
+                hot=int(OOC_HOT_FRAC * n), **kw)
+
+
+def describe_cache(st) -> str:
+    c, x = st.extras["cache"], st.extras
+    lines = [
+        f"    cache: device rows {x['device_resident_rows']} "
+        f"({x['device_resident_bytes'] / 2**30:.3f} GiB, slab "
+        f"{x['cache_capacity_rows']}, hot {x['cache_hot_rows']}), host store "
+        f"{x['host_store_bytes'] / 2**30:.3f} GiB in "
+        f"{x['host_store_shards']} shards",
+        f"    queries {c['queries']} (unique {c['unique_queries']}), cold "
+        f"rows {c['cold_rows']}, hit rate {c['hit_rate']:.4f}, hot hits "
+        f"{c['hot_hits']}, evictions {c['evictions']}, prefetch "
+        f"staged/used {c['prefetch_rows']}/{c['prefetch_used']}",
+        f"    H2D bytes {c['bytes_moved']} (demand {c['bytes_demand']}, "
+        f"prefetch {c['bytes_prefetch']}), lookups {c['lookups']}, host "
+        f"seconds in lookup {x['lookup_host_s']:.3f}"]
+    for lvl, (q, cold, b) in c["per_level"].items():
+        lines.append(f"    DBQ level {lvl}: {q} queries, {cold} cold, "
+                     f"{b} bytes")
+    return "\n".join(lines)
+
+
+def phase_ooc(dev, g_mid, tri_mid, mid_runs, g_full, tri_full) -> int:
+    """oocache == phase 3's torch runs at mid size (counts, level sizes, the
+    house match array), at zero capacity and under tiny caps; then the
+    full-size triangle on phase 4's graph with the device holding under a
+    quarter of the rows. Returns the full-size runs' intersect launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.pattern import get_pattern
+    from repro_torch.core.plangen import generate_best_plan
+    t_phase = time.perf_counter()
+    for pname, (plan, cfg, want) in mid_runs.items():
+        st = run_backend("oocache", plan, g_mid, dev,
+                         backend_kw=ooc_kw(g_mid.n), **cfg)
+        log(describe(f"{pname:8s} oocache  ", st))
+        if st.count != want.count or st.extras["level_sizes"].tolist() != \
+                want.extras["level_sizes"].tolist():
+            raise RuntimeError(f"{pname}: oocache disagrees with torch")
+        if cfg["collect_matches"] and \
+                not np.array_equal(st.matches, want.matches):
+            raise RuntimeError(f"{pname}: oocache match set differs")
+        if st.extras["launches"]["sorted_intersect"] == 0:
+            raise RuntimeError(f"{pname}: oocache never launched a kernel")
+    plan, cfg, _ = mid_runs["triangle"]
+    st = run_backend("oocache", plan, g_mid, dev,
+                     backend_kw=dict(cache_rows=0, hot=0), **cfg)
+    log(describe("triangle cache_rows=0", st))
+    if st.count != tri_mid or st.extras["cache"]["cold_rows"] == 0:
+        raise RuntimeError("oocache at zero capacity is not exact")
+    st = run_backend("oocache", plan, g_mid, dev,
+                     backend_kw=ooc_kw(g_mid.n), batch=MID_BATCH,
+                     caps=(512, 16), max_retries=12)
+    log(describe("triangle oocache tiny caps", st))
+    if st.count != tri_mid or st.chunks_split == 0:
+        raise RuntimeError("forced-overflow oocache run is not exact/split")
+    log(f"  mid-size exact: oocache == torch on 4 patterns, "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    plan = generate_best_plan(get_pattern("triangle"), g_full.stats())
+    n = g_full.n
+    launches = 0
+    for prefetch in (True, False):
+        kw = ooc_kw(n, prefetch=prefetch)
+
+        def run():
+            return run_backend("oocache", plan, g_full, dev, backend_kw=kw,
+                               batch=FULL_BATCH, caps=FULL_CAPS)
+        if prefetch:
+            st = run()
+        else:          # the second run, under the profiler
+            held = {}
+            device_profile("triangle oocache prefetch=False",
+                           lambda: held.setdefault("st", run()))
+            st = held["st"]
+        x, c = st.extras, st.extras["cache"]
+        log(describe(f"triangle oocache prefetch={prefetch}", st)
+            + f" (batch {FULL_BATCH}, caps {FULL_CAPS}, all {n} starts)")
+        log(describe_cache(st))
+        if st.count != tri_full:
+            raise RuntimeError(f"oocache: {st.count} triangles, independent "
+                               f"count {tri_full}")
+        if not x["device_resident_rows"] < 0.25 * (n + 1):
+            raise RuntimeError(f"oocache holds {x['device_resident_rows']} "
+                               "rows on the card, not under a quarter")
+        if c["cold_rows"] == 0 or (prefetch and c["prefetch_used"] == 0):
+            raise RuntimeError("oocache: no cold rows / prefetch unused")
+        if st.extras["launches"]["sorted_intersect"] == 0:
+            raise RuntimeError("oocache never launched sorted_intersect")
+        launches += st.extras["launches"]["sorted_intersect"]
+        torch.cuda.empty_cache()
+    log(f"  phase 6: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: streaming S-BENU
+# ---------------------------------------------------------------------------
+
+
+def cycle_trace(keys, n: int, dev) -> int:
+    """sum((A A) o A^T) of the digraph whose edges are the sorted int64 keys
+    ``src * n + dst``: every 2-path u -> v -> w closed by an edge w -> u.
+    Plain torch ops on the card (no engine, no kernel)."""
+    import torch
+    k = torch.from_numpy(keys).to(dev)
+    src, dst = k // n, k % n
+    outdeg = torch.bincount(src, minlength=n)
+    start = torch.cumsum(outdeg, 0) - outdeg
+    total = 0
+    step = 1 << 20
+    for lo in range(0, k.shape[0], step):
+        u, v = src[lo:lo + step], dst[lo:lo + step]
+        c = outdeg[v]
+        e = torch.repeat_interleave(torch.arange(u.shape[0], device=dev), c)
+        first = torch.cumsum(c, 0) - c
+        j = torch.arange(e.shape[0], device=dev) - first[e]
+        w = dst[start[v[e]] + j]
+        q = w * n + u[e]
+        pos = torch.searchsorted(k, q).clamp(max=k.shape[0] - 1)
+        total += int((k[pos] == q).sum())
+    return total
+
+
+def edge_keys(g) -> "np.ndarray":
+    """The sorted int64 keys ``src * n + dst`` of a DiGraph's edges."""
+    import itertools
+    import numpy as np
+    src = np.repeat(np.arange(g.n, dtype=np.int64),
+                    [len(s) for s in g.out])
+    dst = np.fromiter(itertools.chain.from_iterable(g.out), np.int64,
+                      count=src.shape[0])
+    return np.sort(src * g.n + dst)
+
+
+def batch_keys(batch, n: int, op: str) -> "np.ndarray":
+    import numpy as np
+    return np.sort(np.array([a * n + b for o, a, b in batch if o == op],
+                            np.int64))
+
+
+def run_stream_step(dev, engine, plans, store, **cfg):
+    """One drive of a begun step; returns the stats with the wall time and
+    the intersect launches in its extras."""
+    import torch
+    from repro_torch.core.executor import Executor
+    from repro_torch.kernels import sorted_intersect as si
+    backend = engine
+    si.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = Executor(backend).run(plans, store, **cfg)
+    torch.cuda.synchronize()
+    st.extras["wall_s"] = time.perf_counter() - t0
+    st.extras["launches"] = si.launches
+    st.extras["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return st
+
+
+def describe_step(tag, st, n_updates, n_starts) -> str:
+    c = st.extras["counters"]
+    w = st.extras["wall_s"]
+    return (f"  {tag}: dR+ {c.matches_plus} dR- {c.matches_minus}, wall "
+            f"{w:.3f} s, {n_updates / w:.0f} updates/s, {n_starts} starts, "
+            f"chunks run/split {st.chunks_run}/{st.chunks_split}, levels "
+            f"{st.extras['level_sizes'].tolist()}, sorted_intersect "
+            f"launches {st.extras['launches']}, snapshot "
+            f"{st.extras['snapshot_device_bytes']} B on the card, rebuilds "
+            f"{st.extras['rebuilds']}, peak "
+            f"{st.extras['peak_bytes'] / 2**30:.2f} GiB")
+
+
+def phase_sbenu(dev) -> int:
+    """Mid size: sbenu-torch (device and host snapshot storage) and the
+    interpreter == the brute snapshot diff on five patterns, plus a
+    tiny-caps run that splits. Full size: the q1' counts against the
+    independent cycle count, q2' on the kernel == q2' on the binary probe.
+    Returns the full-size kernel runs' intersect launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.estimate import GraphStats
+    import scipy.sparse as sp
+    from repro_torch.core.executor import (Executor, ExecutorConfig,
+                                           SBenuTorchBackend, drive)
+    from repro_torch.core.pattern import get_pattern
+    from repro_torch.core.sbenu import (enumerate_matches_digraph,
+                                        generate_best_sbenu_plans,
+                                        run_timestep, snapshot_diff_oracle)
+    from repro_torch.core.symmetry import symmetry_breaking_constraints
+    from repro_torch.graph.dynamic import SnapshotStore, stream_width_floors
+    from repro_torch.graph.generate import edge_stream
+    t_phase = time.perf_counter()
+    n, m, b, steps = SB_MID
+    g0, batches = edge_stream(n=n, m_init=m, steps=steps, batch=b,
+                              seed=SEED, delete_frac=SB_DELETE)
+    d, dd = stream_width_floors(g0, batches)
+    log(f"  mid stream: n {n}, m_init {m}, {steps} steps of {b} updates "
+        f"(delete share {SB_DELETE}), widths pinned at {d}/{dd}")
+    # q1': sum((A A) o A^T) per reported match, fixed here against the
+    # brute force and used unchanged at full size
+    q1 = get_pattern("q1'")
+    r0 = enumerate_matches_digraph(q1, g0, symmetry_breaking_constraints(q1))
+    keys = edge_keys(g0)
+    trace0 = cycle_trace(keys, n, dev)
+    a = sp.csr_matrix((np.ones(keys.shape[0]), (keys // n, keys % n)),
+                      shape=(n, n))
+    if trace0 != int((a @ a).multiply(a.T).sum()):
+        raise RuntimeError("cycle_trace disagrees with scipy.sparse")
+    if not r0 or trace0 % len(r0):
+        raise RuntimeError(f"q1': trace {trace0} over {len(r0)} matches")
+    per_match = trace0 // len(r0)
+    log(f"  q1' on G_0: {len(r0)} matches by brute force, "
+        f"sum((A A) o A^T) = {trace0}: {per_match} per match")
+    t_oracle = 0.0
+    for pname in SBENU_PATTERNS:
+        P = get_pattern(pname)
+        plans = generate_best_sbenu_plans(P, GraphStats(n, m, delta_edges=b))
+        stores = {k: SnapshotStore(g0)
+                  for k in ("device", "host", "sbenu", "tiny")}
+        backends = {k: SBenuTorchBackend(d_min=d, delta_d_min=dd,
+                                         snapshot_storage=k, device=dev)
+                    for k in ("device", "host")}
+        # one run under tiny capacities (q2': its third level fans out)
+        tiny = SBenuTorchBackend(d_min=d, delta_d_min=dd, device=dev) \
+            if pname == "q2'" else None
+        split = 0
+        for step, batch in enumerate(batches, 1):
+            t0 = time.perf_counter()
+            want = snapshot_diff_oracle(P, stores["sbenu"], batch)
+            t_oracle += time.perf_counter() - t0
+            got = {k: run_timestep(P, plans, stores[k], batch, backend=be,
+                                   chunk=64)[:2]
+                   for k, be in backends.items()}
+            got["sbenu"] = run_timestep(P, plans, stores["sbenu"], batch,
+                                        engine="sbenu")[:2]
+            if tiny is not None:
+                store = stores["tiny"]
+                store.begin_step(batch)
+                st = drive(tiny, plans, store, ExecutorConfig(
+                    batch=64, caps=[8] * 4, max_retries=12,
+                    collect_matches=True))
+                store.end_step()
+                split += st.chunks_split
+                got["tiny caps"] = (st.extras["delta_plus"],
+                                    st.extras["delta_minus"])
+            for k, (gp, gm) in got.items():
+                if (gp, gm) != want:
+                    raise RuntimeError(f"{pname} step {step}: {k} dR+/dR- "
+                                       f"{len(gp)}/{len(gm)} != oracle "
+                                       f"{len(want[0])}/{len(want[1])}")
+            log(f"  {pname:4s} step {step}: dR+ {len(want[0])} dR- "
+                f"{len(want[1])} == oracle for {sorted(got)}")
+        if tiny is not None:
+            log(f"  {pname} tiny caps: {split} splits over the stream")
+            if split == 0:
+                raise RuntimeError(f"{pname}: the tiny-caps run never split")
+        if any(be.dstore.rebuilds != 1 for be in backends.values()):
+            raise RuntimeError(f"{pname}: snapshot rebuilt more than once")
+    log(f"  mid-size exact ({time.perf_counter() - t_phase:.1f} s, "
+        f"oracle {t_oracle:.1f} s)")
+
+    n, m, b, steps = SB_FULL
+    t0 = time.perf_counter()
+    g0, batches = edge_stream(n=n, m_init=m, steps=steps, batch=b,
+                              seed=SEED, delete_frac=SB_DELETE)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d, dd = stream_width_floors(g0, batches)
+    store = SnapshotStore(g0)
+    keys = edge_keys(g0)
+    log(f"  full stream: n {n}, m_init {m} ({keys.shape[0]} edges), "
+        f"{steps} steps of {b} updates: generated in {t_gen:.1f} s (host), "
+        f"widths pinned at {d}/{dd}, store + edge keys "
+        f"{time.perf_counter() - t0:.1f} s")
+    q2 = get_pattern("q2'")
+    stats = GraphStats(n, m, delta_edges=b)
+    plans = {"q1'": generate_best_sbenu_plans(q1, stats),
+             "q2'": generate_best_sbenu_plans(q2, stats)}
+    runs = {"q1'": ("auto", "q1'"), "q2'": ("auto", "q2'"),
+            "q2' binary": ("binary", "q2'")}
+    backends = {k: SBenuTorchBackend(collect="counts", d_min=d,
+                                     delta_d_min=dd, device=dev)
+                for k in runs}
+    c_prev = cycle_trace(keys, n, dev) // per_match
+    launches = 0
+    for step, batch in enumerate(batches, 1):
+        dels, ins = batch_keys(batch, n, "-"), batch_keys(batch, n, "+")
+        u_keys = np.setdiff1d(keys, dels, assume_unique=True)
+        keys = np.union1d(u_keys, ins)
+        c_cur = cycle_trace(keys, n, dev) // per_match
+        c_u = cycle_trace(u_keys, n, dev) // per_match
+        store.begin_step(batch)
+        n_starts = len(store.start_vertices())
+        out = {}
+        for tag, (impl, pname) in runs.items():
+            st = run_stream_step(dev, backends[tag], plans[pname], store,
+                                 batch=SB_BATCH, intersect_impl=impl)
+            log(describe_step(f"step {step} {tag:10s}", st, len(batch),
+                              n_starts))
+            out[tag] = st
+            if impl == "auto":
+                if st.extras["launches"] == 0:
+                    raise RuntimeError(f"{tag} never launched the kernel")
+                launches += st.extras["launches"]
+        if step == steps:
+            device_profile(f"step {step} q1' (kernels)", lambda: Executor(
+                backends["q1'"]).run(plans["q1'"], store, batch=SB_BATCH))
+        store.end_step()
+        ctr = out["q1'"].extras["counters"]
+        want = (c_cur - c_u, c_prev - c_u)
+        log(f"  step {step} independent q1': C(G_t) {c_cur}, C(U_t) {c_u}, "
+            f"C(G_t-1) {c_prev}: dR+ {want[0]}, dR- {want[1]}")
+        if (ctr.matches_plus, ctr.matches_minus) != want:
+            raise RuntimeError(f"q1' step {step}: engine "
+                               f"{ctr.matches_plus}/{ctr.matches_minus}, "
+                               f"independent {want[0]}/{want[1]}")
+        k, p = out["q2'"], out["q2' binary"]
+        kc, pc = k.extras["counters"], p.extras["counters"]
+        if (kc.matches_plus, kc.matches_minus) != \
+                (pc.matches_plus, pc.matches_minus) or \
+                k.extras["level_sizes"].tolist() != \
+                p.extras["level_sizes"].tolist():
+            raise RuntimeError(f"q2' step {step}: kernel != binary probe")
+        c_prev = c_cur
+    rebuilds = backends["q1'"].dstore.rebuilds
+    log(f"  snapshot rebuilds over the stream: {rebuilds}")
+    if rebuilds != 1:
+        raise RuntimeError(f"{rebuilds} snapshot rebuilds, expected 1")
+    log(f"  phase 7: {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py needs the repository around it "
@@ -823,11 +1231,20 @@ def main() -> int:
     kern = phase_kernels(dev, bandwidth)
     kern.update(phase_lm_kernels(dev, bandwidth, peak))
     log("phase 3: mid-size exactness")
-    phase_mid(dev)
+    g_mid, tri_mid, mid_runs = phase_mid(dev)
     log("phase 4: full size (main path)")
-    launches = phase_full(dev)
+    with gc_paused():
+        launches, g_full, tri_full = phase_full(dev)
     log("phase 5: LM serving path at full width (qwen2-0.5b)")
     launches.update(phase_lm(dev))
+    log("phase 6: out-of-core B-BENU (host row store + device row cache)")
+    with gc_paused():
+        launches["sorted_intersect"] += phase_ooc(
+            dev, g_mid, tri_mid, mid_runs, g_full, tri_full)
+    del g_mid, mid_runs, g_full
+    log("phase 7: streaming S-BENU")
+    with gc_paused():
+        launches["sorted_intersect"] += phase_sbenu(dev)
 
     sources = {"sorted_intersect": ("src/repro_torch/csrc/sorted_intersect.cu",
                                     "src/repro/kernels/sorted_intersect.py:50"),

@@ -5,6 +5,9 @@ weights:
 
     plan = plan_from_fields(dataclasses.asdict(jax_plan))
     dg = device_graph_from_numpy(np.asarray(jax_device_graph.rows), n, "cpu")
+    snap = device_snapshot_from_numpy(
+        {k: np.asarray(getattr(jax_snap, k)) for k in SNAPSHOT_BLOCKS},
+        n, "cpu")
     sd = lm_state_dict_from_numpy(jax.tree.map(np.asarray, params), cfg)
     model.load_state_dict(sd)
 
@@ -19,8 +22,10 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from .core.engine_sbenu_torch import device_put_snapshot
 from .core.engine_torch import DeviceGraph
 from .core.instructions import Instr, Plan
+from .graph.dynamic import SNAPSHOT_BLOCKS, DeviceSnapshot
 
 
 def _tuples(x: Any) -> Any:
@@ -55,6 +60,24 @@ def device_graph_from_numpy(rows: np.ndarray, n: int,
         raise ValueError(f"rows{rows.shape} must be [n+1, D] with row n={n} "
                          "all-sentinel")
     return DeviceGraph(rows=torch.from_numpy(rows).to(device), n=n)
+
+
+def device_snapshot_from_numpy(blocks: Mapping[str, np.ndarray], n: int,
+                               device) -> DeviceSnapshot:
+    """A :class:`DeviceSnapshot` on ``device`` (stacked prev/cur buffers
+    built) from the eight blocks of a reference snapshot, each an
+    ``np.asarray`` of the JAX block: value blocks ``int32[n+1, D]`` with
+    row ``n`` all-sentinel, sign blocks ``int32[n+1, Dd]``."""
+    missing = [k for k in SNAPSHOT_BLOCKS if k not in blocks]
+    if missing:
+        raise ValueError(f"snapshot blocks missing: {missing}")
+    for k in SNAPSHOT_BLOCKS:
+        b = np.asarray(blocks[k])
+        if b.ndim != 2 or b.shape[0] != n + 1:
+            raise ValueError(f"{k}{b.shape} must be [n+1, D] with n={n}")
+    return device_put_snapshot(
+        DeviceSnapshot(n=n, **{k: np.array(blocks[k], np.int32)
+                               for k in SNAPSHOT_BLOCKS}), device)
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:

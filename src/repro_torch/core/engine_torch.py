@@ -179,10 +179,16 @@ def _apply_filters(sets: torch.Tensor, filters,
 
 def _expand(env: Dict[Var, torch.Tensor], valid: torch.Tensor,
             cand: torch.Tensor, target: Var, cap: int, live: frozenset,
-            sentinel: int, compaction: str = "cumsum"
+            sentinel: int, compaction: str = "cumsum",
+            extra_cols: Optional[Dict[Var, torch.Tensor]] = None
             ) -> Tuple[Dict[Var, torch.Tensor], torch.Tensor, torch.Tensor]:
     """ENU: frontier [B] -> child frontier [cap]. Returns (env', valid',
     overflow_count).
+
+    ``extra_cols`` maps extra per-candidate columns (``[B, D]`` aligned with
+    ``cand``) to env vars of the child frontier — the S-BENU Delta-ENU uses
+    this to carry each candidate's ± snapshot selector alongside its vertex
+    (0 in invalid child slots).
 
     Compaction of the valid children to the front, in flat order:
       * "cumsum": positions by prefix sum + one scatter into a ``cap + 1``
@@ -217,6 +223,9 @@ def _expand(env: Dict[Var, torch.Tensor], valid: torch.Tensor,
         if v in live:
             new_env[v] = arr.index_select(0, parents)
     new_env[target] = flat[take].masked_fill(~new_valid, sentinel)
+    if extra_cols:
+        for v, arr in extra_cols.items():
+            new_env[v] = arr.reshape(n)[take].masked_fill(~new_valid, 0)
     return new_env, new_valid, overflow
 
 

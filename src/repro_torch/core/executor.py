@@ -6,12 +6,18 @@ overflowing chunk is re-chunked into smaller start batches before its
 capacities grow, so no match is ever dropped), and the backends are the
 port's own::
 
-    torch      single-device frontier engine, unfused   (core/engine_torch.py)
-    torch-gpu  same engine, fused gather+intersect
-               fetch path (csrc/gather_intersect.cu)    (core/engine_torch.py)
+    torch        single-device frontier engine, unfused (core/engine_torch.py)
+    torch-gpu    same engine, fused gather+intersect
+                 fetch path (csrc/gather_intersect.cu)  (core/engine_torch.py)
+    oocache      out-of-core: host-RAM row shards +
+                 bounded device row cache + async
+                 prefetch                               (core/engine_ooc.py)
+    sbenu        continuous/delta enumeration,
+                 interpreted on the host                (core/sbenu.py)
+    sbenu-torch  vectorized continuous enumeration      (core/engine_sbenu_torch.py)
 
-Both run on ``cuda`` unless given ``device=``; with no device and no card
-they raise.
+All but ``sbenu`` run on ``cuda`` unless given ``device=``; with no
+device and no card they raise.
 
     >>> from repro_torch.core.executor import make_executor
     >>> from repro_torch.core.pattern import get_pattern
@@ -40,6 +46,7 @@ from ..graph.storage import Graph
 from .engine_torch import (DeviceGraph, build_enumerator, check_jit_supported,
                            default_caps, resolve_device)
 from .instructions import ENU, Plan
+from .pattern import Pattern
 
 
 # --------------------------------------------------------------------------
@@ -123,7 +130,8 @@ class ExecutorConfig:
 
     Units: ``batch`` and ``universe_chunk`` count start vertices /
     universe ids per chunk; ``caps[i]`` counts child-frontier rows at the
-    i-th ENU level.
+    i-th ENU level; ``theta`` counts C2 candidates (the interpreter's
+    task-split threshold, paper §6.3).
     """
 
     batch: int = 256                 # global start-vertex chunk size
@@ -133,6 +141,7 @@ class ExecutorConfig:
     adaptive_split: bool = True      # re-chunk before growing capacities
     collect_matches: bool = False
     intersect_impl: str = "auto"
+    theta: Optional[int] = None      # interpreter task-split threshold
 
 
 @dataclass
@@ -413,9 +422,363 @@ class TorchGpuBackend(TorchBackend):
     fused = True
 
 
+# --------------------------------------------------------------------------
+# Backend: out-of-core fetch path (host-RAM shards + device row cache)
+# --------------------------------------------------------------------------
+
+
+class OocBackend(ExecutorBackend):
+    """Out-of-core frontier enumeration (core/engine_ooc.py, paper §6).
+
+    The padded adjacency lives in host-RAM shards
+    (:class:`~repro_torch.graph.hoststore.HostRowStore`); device memory
+    holds a bounded row cache
+    (:class:`~repro_torch.distributed.rowcache.DeviceRowCache`:
+    ``cache_rows`` LRU slots + the top-``hot``-by-degree rows pinned).
+    Every DBQ level dedups its id batch and pulls only the cold rows from
+    the host, and the next chunk's start rows are prefetched (pinned
+    staging buffers, a side CUDA stream) while the current chunk computes.
+
+    Sizing: ``cache_rows``/``hot``/``stage_rows`` count rows (``D * 4``
+    bytes each); when omitted, ``cache_rows``/``hot`` default to
+    ``cache_frac`` / ``hot_frac`` of the graph's N rows and
+    ``stage_rows`` to ``cache_rows // 4`` per staging block. Worst-case
+    device residency is ``cache_rows + 2 * stage_rows + hot + 1`` rows
+    (slab + both staging blocks + pinned hot + sentinel), independent of
+    graph size.
+    """
+
+    name = "oocache"
+    splittable = True
+
+    def __init__(self, cache_rows: Optional[int] = None,
+                 cache_frac: float = 0.15,
+                 hot: Optional[int] = None, hot_frac: float = 0.05,
+                 prefetch: bool = True, stage_rows: Optional[int] = None,
+                 rows_per_shard: int = 4096,
+                 compaction: str = "cumsum", device=None):
+        self.device = resolve_device(device)
+        self._cache_rows = cache_rows
+        self._cache_frac = cache_frac
+        self._hot = hot
+        self._hot_frac = hot_frac
+        self._prefetch = prefetch
+        self._stage_rows = stage_rows
+        self._rows_per_shard = rows_per_shard
+        self._compaction = compaction
+        self.cache = None
+        self.store = None
+
+    def prepare(self, plan: Plan, source: Graph,
+                config: ExecutorConfig) -> None:
+        from ..distributed.rowcache import DeviceRowCache
+        from ..graph.hoststore import HostRowStore
+        from .engine_ooc import OocEngine
+        t0 = time.perf_counter()
+        self.plan, self.graph = plan, source
+        n = source.n
+        self.sentinel = n
+        self.store = HostRowStore.from_graph(
+            source, rows_per_shard=self._rows_per_shard)
+        cap = self._cache_rows if self._cache_rows is not None else \
+            max(1, int(n * self._cache_frac))
+        hot = self._hot if self._hot is not None else \
+            max(0, int(n * self._hot_frac))
+        self.cache = DeviceRowCache(self.store, cap, hot=hot,
+                                    stage_rows=self._stage_rows,
+                                    device=self.device)
+        self.has_universe = check_jit_supported(plan)
+        self._caps0 = tuple(config.caps) if config.caps is not None else \
+            tuple(default_caps(plan, config.batch, self.store.d))
+        self.engine = OocEngine(plan, self.cache,
+                                collect_matches=config.collect_matches,
+                                intersect_impl=config.intersect_impl,
+                                compaction=self._compaction)
+        self._level_acc: Optional[np.ndarray] = None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._prepare_s = time.perf_counter() - t0
+
+    def _n_starts(self) -> int:
+        return self.graph.n
+
+    def start_batches(self, config: ExecutorConfig):
+        """Yield start batches, prefetching batch ``k + 1``'s rows right
+        before handing batch ``k`` to the driver: the async H2D copy
+        overlaps batch ``k``'s compute (double buffering)."""
+        batches = list(start_id_batches(self.graph.n, config.batch))
+        for k, (ids, valid) in enumerate(batches):
+            if self._prefetch and k + 1 < len(batches):
+                nxt_ids, nxt_valid = batches[k + 1]
+                self.cache.prefetch(nxt_ids[nxt_valid])
+            yield ids, valid
+
+    def universe_chunks(self, config: ExecutorConfig):
+        if not self.has_universe:
+            return [None]
+        return build_universe_chunks(self.graph.n, config.universe_chunk)
+
+    def initial_caps(self, config: ExecutorConfig) -> Tuple[int, ...]:
+        return self._caps0
+
+    def run_chunk(self, ids, valid, universe_chunk, caps) -> ChunkResult:
+        res = self.engine.run_chunk(ids, valid, universe_chunk, caps)
+        if res.overflow == 0 and res.level_sizes:
+            lv = np.asarray(res.level_sizes, np.int64)
+            self._level_acc = (lv if self._level_acc is None
+                               else self._level_acc + lv)
+        return ChunkResult(count=res.count, overflow=res.overflow,
+                           matches=res.matches)
+
+    def finalize(self, stats: ExecStats) -> None:
+        stats.extras.update(
+            cache=self.cache.stats.as_dict(),
+            cache_capacity_rows=self.cache.capacity_rows,
+            cache_hot_rows=self.cache.hot,
+            device_resident_rows=self.cache.device_rows,
+            device_resident_bytes=self.cache.device_bytes,
+            host_store_bytes=self.store.nbytes,
+            host_store_shards=len(self.store.shards),
+            level_sizes=(self._level_acc if self._level_acc is not None
+                         else np.zeros(0, np.int64)),
+            lookup_host_s=self.cache.lookup_host_s,
+            prepare_s=self._prepare_s)  # host shards + the cache's blocks
+
+
+# --------------------------------------------------------------------------
+# Backend: S-BENU continuous enumeration (delta tasks on a SnapshotStore)
+# --------------------------------------------------------------------------
+
+
+class SBenuBackend(ExecutorBackend):
+    """Delta enumeration over a SnapshotStore (core/sbenu.py), interpreted
+    on the host.
+
+    Start vertices are the batch's update endpoints; heavy tasks θ-split on
+    their delta adjacency list. Source = a begun SnapshotStore; plan = the
+    list of incremental plans for every ΔP_i.
+    """
+
+    name = "sbenu"
+    splittable = True
+
+    def __init__(self, pattern: Pattern, cache_capacity: Optional[int] = None,
+                 collect: str = "matches"):
+        self._pattern = pattern
+        self._cache_capacity = cache_capacity
+        self._collect = collect
+        self.engine = None
+
+    def prepare(self, plans: Sequence[Plan], source,
+                config: ExecutorConfig) -> None:
+        from .sbenu import SBenuRefEngine
+        self.store = source
+        self.sentinel = -1
+        self._starts = np.asarray(sorted(source.start_vertices()), np.int32)
+        self.engine = SBenuRefEngine(plans, self._pattern, source,
+                                     collect=self._collect,
+                                     cache_capacity=self._cache_capacity)
+        self._theta = config.theta
+
+    def start_batches(self, config: ExecutorConfig):
+        n = self._starts.shape[0]
+        for s0 in range(0, max(n, 1), config.batch):
+            ids = self._starts[s0:s0 + config.batch]
+            if ids.shape[0] == 0:
+                return
+            yield ids, np.ones(ids.shape[0], bool)
+
+    def run_chunk(self, ids, valid, universe_chunk, caps) -> ChunkResult:
+        eng = self.engine
+        c0 = eng.counters.matches_plus + eng.counters.matches_minus
+        eng.run_starts(ids[valid], theta=self._theta)
+        c1 = eng.counters.matches_plus + eng.counters.matches_minus
+        return ChunkResult(count=c1 - c0)
+
+    def finalize(self, stats: ExecStats) -> None:
+        stats.extras.update(
+            delta_plus=set(self.engine.delta_plus),
+            delta_minus=set(self.engine.delta_minus),
+            counters=self.engine.counters)
+
+
+# --------------------------------------------------------------------------
+# Backend: vectorized S-BENU (delta-frontier engine over the six-block
+# device snapshot)
+# --------------------------------------------------------------------------
+
+
+class SBenuTorchBackend(ExecutorBackend):
+    """Lockstep delta-frontier enumeration (core/engine_sbenu_torch.py).
+
+    ``plan`` is the list of incremental plans (one per ΔP_i); ``source`` is
+    a *begun* SnapshotStore. Start batches cover the touched-vertex set of
+    the update batch (vertices with non-empty ΔΓ_out), never all of V(G);
+    every plan runs over each chunk, and a chunk whose total overflow is
+    non-zero is discarded whole and re-split by the shared driver.
+
+    ``snapshot_storage='device'`` keeps the prev blocks on the card across
+    steps; ``'host'`` keeps them in host-RAM shards advanced in place and
+    moves the step's blocks to the card for the step.
+    """
+
+    name = "sbenu-torch"
+    splittable = True
+
+    def __init__(self, collect: str = "matches", lane: int = 8,
+                 d_min: int = 0, delta_d_min: int = 0,
+                 compaction: str = "cumsum",
+                 snapshot_storage: str = "device", device=None):
+        self.device = resolve_device(device)
+        self._collect_mode = collect
+        self._lane = lane
+        self._d_min = d_min
+        self._delta_d_min = delta_d_min
+        self._compaction = compaction
+        self._snapshot_storage = snapshot_storage
+        # runners outlive prepare(): a backend reused across time steps
+        # (run_timestep(backend=...)) builds them once per stream
+        self._runners: Dict[Tuple, Callable] = {}
+
+    def prepare(self, plans: Sequence[Plan], source,
+                config: ExecutorConfig) -> None:
+        from ..graph.dynamic import DeviceSnapshotStore
+        from .engine_sbenu_torch import (device_put_snapshot,
+                                         plan_level_count,
+                                         sbenu_level_fanouts)
+        self.plans = list(plans)
+        # the runner cache keys on plan identity: a *different* plan list
+        # invalidates it; self.plans keeps the current ones alive
+        plan_ids = tuple(id(p) for p in self.plans)
+        if getattr(self, "_cached_plan_ids", None) != plan_ids:
+            self._runners.clear()
+            self._cached_plan_ids = plan_ids
+        self.store = source
+        self.sentinel = source.n
+        self._starts = np.asarray(sorted(source.start_vertices()), np.int32)
+        self.dstore = DeviceSnapshotStore.for_store(
+            source, lane=self._lane, d_min=self._d_min,
+            delta_d_min=self._delta_d_min,
+            storage=self._snapshot_storage, device=self.device)
+        self.snap = device_put_snapshot(self.dstore.step_snapshot(),
+                                        self.device)
+        # the Delta-ENU level has an exact bound: the worst chunk's total
+        # delta-edge count (each start emits exactly its delta row)
+        degs = np.array([len(source.delta_adj_out(int(v)))
+                         for v in self._starts], np.int64)
+        B = config.batch
+        denu_cap = int(max((degs[s0:s0 + B].sum()
+                            for s0 in range(0, len(degs), B)), default=B))
+        denu_cap = max(denu_cap, B, 8)
+        # round up to a power of two: steps with similar churn share one
+        # caps tuple (and one runner)
+        denu_cap = 1 << (denu_cap - 1).bit_length()
+        # average degree drives fan-out levels (single-adjacency ENUs)
+        avg_deg = max(1, round(source.prev.m / max(source.n, 1)))
+        # one caps tuple for the whole chunk: per-plan slices, concatenated
+        self._offsets: List[Tuple[int, int]] = []
+        caps: List[int] = []
+        for plan in self.plans:
+            n_lv = plan_level_count(plan)
+            if config.caps is not None:
+                c = list(config.caps)[:n_lv]
+                c += [c[-1]] * (n_lv - len(c))
+            else:
+                # contraction levels keep the exact Delta-ENU bound; a
+                # fan-out level scales by ~avg degree. The driver
+                # re-splits the heavy tail.
+                c, cur = [], denu_cap
+                for fans in sbenu_level_fanouts(plan):
+                    if fans:
+                        cur = min(cur * 2 * avg_deg, 1 << 22)
+                        cur = 1 << (cur - 1).bit_length()
+                    c.append(cur)
+            self._offsets.append((len(caps), len(caps) + len(c)))
+            caps.extend(c)
+        self._caps0 = tuple(caps)
+        self._collect = config.collect_matches or \
+            self._collect_mode == "matches"
+        self._intersect = config.intersect_impl
+        self._plus: List[Tuple[int, ...]] = []
+        self._minus: List[Tuple[int, ...]] = []
+        self._count_plus = 0
+        self._count_minus = 0
+        self._level_acc: Optional[np.ndarray] = None
+
+    def _n_starts(self) -> int:
+        return self._starts.shape[0]
+
+    def start_batches(self, config: ExecutorConfig):
+        n, B = self._starts.shape[0], config.batch
+        for s0 in range(0, n, B):
+            chunk = self._starts[s0:s0 + B]
+            ids = np.full(B, self.sentinel, np.int32)
+            ids[:chunk.shape[0]] = chunk
+            valid = np.zeros(B, bool)
+            valid[:chunk.shape[0]] = True
+            yield ids, valid
+
+    def initial_caps(self, config: ExecutorConfig) -> Tuple[int, ...]:
+        return self._caps0
+
+    def _runner(self, B: int, caps: Tuple[int, ...]) -> Callable:
+        key = (self._cached_plan_ids, B, caps, self._collect,
+               self._intersect)
+        if key not in self._runners:
+            from .engine_sbenu_torch import build_sbenu_multi_enumerator
+            caps_list = [tuple(caps[lo:hi]) for lo, hi in self._offsets]
+            self._runners[key] = build_sbenu_multi_enumerator(
+                self.plans, self.sentinel, caps_list,
+                collect_matches=self._collect,
+                intersect_impl=self._intersect,
+                compaction=self._compaction)
+        return self._runners[key]
+
+    def run_chunk(self, ids, valid, universe_chunk, caps) -> ChunkResult:
+        dev = self.device
+        res = self._runner(ids.shape[0], tuple(caps))(
+            self.snap, torch.from_numpy(ids).to(dev),
+            torch.from_numpy(valid).to(dev))
+        # one device->host read per chunk: counts, overflow, level sizes
+        cp, cm, ov, *levels = torch.stack(
+            [res.count_plus, res.count_minus, res.overflow,
+             *res.level_sizes]).cpu().tolist()
+        if ov:
+            # discard the whole chunk; the driver re-splits or grows
+            return ChunkResult(count=0, overflow=ov)
+        if self._collect and res.matches is not None:
+            mv = res.matches_valid
+            rows = res.matches[mv].cpu().numpy()
+            ops = res.match_ops[mv].cpu().numpy()
+            for row, o in zip(rows, ops):
+                (self._plus if o > 0 else self._minus).append(
+                    tuple(int(x) for x in row))
+        lv = np.asarray(levels, np.int64)
+        self._level_acc = lv if self._level_acc is None \
+            else self._level_acc + lv
+        self._count_plus += cp
+        self._count_minus += cm
+        return ChunkResult(count=cp + cm)
+
+    def finalize(self, stats: ExecStats) -> None:
+        from .sbenu import SBenuCounters
+        ctr = SBenuCounters(matches_plus=self._count_plus,
+                            matches_minus=self._count_minus)
+        stats.extras.update(
+            delta_plus=set(self._plus), delta_minus=set(self._minus),
+            counters=ctr,
+            level_sizes=(self._level_acc if self._level_acc is not None
+                         else np.zeros(0, np.int64)),
+            snapshot_device_bytes=self.snap.device_bytes(),
+            rebuilds=self.dstore.rebuilds)
+
+
 BACKENDS = {
     "torch": TorchBackend,
     "torch-gpu": TorchGpuBackend,
+    "oocache": OocBackend,
+    "sbenu": SBenuBackend,
+    "sbenu-torch": SBenuTorchBackend,
 }
 
 

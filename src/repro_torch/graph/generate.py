@@ -13,7 +13,7 @@ from typing import List, Set, Tuple
 
 import numpy as np
 
-from .storage import Graph
+from .storage import DiGraph, Graph
 
 
 def erdos_renyi(n: int, m: int, seed: int = 0,
@@ -54,3 +54,57 @@ def powerlaw(n: int, m_per_node: int = 4, seed: int = 0,
             if t not in targets:
                 targets.append(t)
     return Graph.from_edges(n, list(edges), canonicalize=canonicalize)
+
+
+def random_digraph(n: int, m: int, seed: int = 0) -> DiGraph:
+    rng = np.random.default_rng(seed)
+    g = DiGraph(n)
+    added = 0
+    while added < m:
+        a = int(rng.integers(0, n))
+        b = int(rng.integers(0, n))
+        if a != b and not g.has_edge(a, b):
+            g.add_edge(a, b)
+            added += 1
+    return g
+
+
+def edge_stream(n: int, m_init: int, steps: int, batch: int, seed: int = 0,
+                delete_frac: float = 0.3):
+    """A dynamic directed graph: initial DiGraph + per-step batch updates.
+
+    Returns ``(g0, [batch_1, ..., batch_steps])`` where each batch is a list
+    of ``(op, src, dst)`` with op in {'+', '-'}, each edge appearing at most
+    once per batch (paper's assumption).
+    """
+    rng = np.random.default_rng(seed)
+    g0 = random_digraph(n, m_init, seed=seed)
+    cur = g0.copy()
+    batches = []
+    for _ in range(steps):
+        ops = []
+        touched = set()
+        existing = list(cur.edges())
+        n_del = min(int(batch * delete_frac), max(len(existing) - 1, 0))
+        if n_del and existing:
+            idx = rng.choice(len(existing), size=n_del, replace=False)
+            for i in idx:
+                a, b = existing[int(i)]
+                if (a, b) in touched:
+                    continue
+                ops.append(("-", a, b))
+                touched.add((a, b))
+        while len(ops) < batch:
+            a = int(rng.integers(0, n))
+            b = int(rng.integers(0, n))
+            if a == b or cur.has_edge(a, b) or (a, b) in touched:
+                continue
+            ops.append(("+", a, b))
+            touched.add((a, b))
+        for op, a, b in ops:     # advance the generator's view
+            if op == "+":
+                cur.add_edge(a, b)
+            else:
+                cur.remove_edge(a, b)
+        batches.append(ops)
+    return g0, batches

@@ -4,8 +4,8 @@ The paper stores adjacency sets in a distributed KV database keyed by vertex
 id. Our in-memory logical form mirrors that: per-vertex *sorted* adjacency
 arrays. Two physical layouts are provided:
 
-* ``Graph``: python/numpy adjacency lists — used by the plan compiler and
-  the drivers.
+* ``Graph`` / ``DiGraph``: python/numpy adjacency lists — used by the plan
+  compiler, the drivers and the dynamic-graph machinery.
 * ``padded_adjacency``: a dense ``int32[N, D]`` row matrix padded with the
   sentinel ``N`` — the device-resident layout consumed by the frontier
   engine (rows are what DBQ fetches).
@@ -141,3 +141,60 @@ class Graph:
         rows = pad_rows(self.adj, self.n, d_max=d_max, lane=lane,
                         on_overflow=on_overflow)
         return rows, self.deg.astype(np.int32)
+
+
+class DiGraph:
+    """Static directed simple graph (S-BENU snapshots)."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.out: List[set] = [set() for _ in range(n)]
+        self.inn: List[set] = [set() for _ in range(n)]
+
+    @staticmethod
+    def from_edges(n: int, edges: Iterable[Edge]) -> "DiGraph":
+        g = DiGraph(n)
+        for a, b in edges:
+            g.add_edge(a, b)
+        return g
+
+    def add_edge(self, a: int, b: int) -> None:
+        if a == b:
+            return
+        self.out[a].add(b)
+        self.inn[b].add(a)
+
+    def remove_edge(self, a: int, b: int) -> None:
+        self.out[a].discard(b)
+        self.inn[b].discard(a)
+
+    def has_edge(self, a: int, b: int) -> bool:
+        return b in self.out[a]
+
+    def copy(self) -> "DiGraph":
+        g = DiGraph(self.n)
+        g.out = [set(s) for s in self.out]
+        g.inn = [set(s) for s in self.inn]
+        return g
+
+    @property
+    def m(self) -> int:
+        return sum(len(s) for s in self.out)
+
+    def edges(self) -> Iterable[Edge]:
+        for v in range(self.n):
+            for w in sorted(self.out[v]):
+                yield (v, w)
+
+    def stats(self) -> GraphStats:
+        return GraphStats(n_vertices=self.n, n_edges=self.m)
+
+    # ---------------------------------------------------------- dense layout
+    def padded_adjacency(self, direction: str = "out",
+                         d_max: Optional[int] = None, lane: int = 8,
+                         on_overflow: str = "raise") -> np.ndarray:
+        """Sentinel-padded ``int32[N, D]`` rows of one adjacency direction."""
+        sets = self.out if direction == "out" else self.inn
+        adj = [np.array(sorted(s), dtype=np.int64) for s in sets]
+        return pad_rows(adj, self.n, d_max=d_max, lane=lane,
+                        on_overflow=on_overflow)

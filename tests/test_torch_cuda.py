@@ -283,3 +283,130 @@ def test_smoke_lm_on_the_card_equals_the_cpu(card, arch):
         torch.testing.assert_close(lg.cpu(), want, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(lg.cpu(), ttf.prefill_step(cpu, toks),
                                rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pname", ["triangle", "square", "clique4", "house"])
+def test_oocache_on_the_card_equals_the_cpu(card, pname):
+    """oocache on the card (pinned staging, side-stream prefetch, the
+    intersect kernel) == oocache on the CPU: counts, chunk accounting,
+    frontier sizes and every cache counter."""
+    from repro_torch.core.executor import make_executor
+    from repro_torch.core.pattern import get_pattern
+    from repro_torch.core.plangen import generate_best_plan
+    from repro_torch.graph.generate import powerlaw
+    from repro_torch.kernels import sorted_intersect as si
+    g = powerlaw(400, 6, seed=3)
+    plan = generate_best_plan(get_pattern(pname), g.stats())
+    n_enu = sum(i.op == "ENU" for i in plan.instrs)
+    cfg = dict(batch=32, caps=[1024] * n_enu, max_retries=12)
+    kw = dict(cache_rows=48, hot=16)
+    want = make_executor("oocache", device="cpu", **kw).run(plan, g, **cfg)
+    si.launches = 0
+    st = make_executor("oocache", device=card, **kw).run(plan, g, **cfg)
+    assert si.launches > 0
+    assert st.count == want.count
+    assert (st.chunks_run, st.chunks_split, st.chunks_retried) == \
+        (want.chunks_run, want.chunks_split, want.chunks_retried)
+    np.testing.assert_array_equal(st.extras["level_sizes"],
+                                  want.extras["level_sizes"])
+    assert st.extras["cache"] == want.extras["cache"]
+    assert st.extras["cache"]["prefetch_used"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["device", "host"])
+@pytest.mark.parametrize("pname", ["dtoy", "q1'", "q2'", "q3'", "q5'"])
+def test_sbenu_torch_on_the_card_equals_the_cpu(card, pname, storage):
+    """sbenu-torch on the card (the intersect kernel, holes kept in place)
+    == sbenu-torch on the CPU (binary probe, rows re-sorted): ΔR⁺/ΔR⁻
+    sets and per-level frontier sizes, step by step."""
+    from repro_torch.core.estimate import GraphStats
+    from repro_torch.core.executor import SBenuTorchBackend, drive
+    from repro_torch.core.executor import ExecutorConfig
+    from repro_torch.core.pattern import get_pattern
+    from repro_torch.core.sbenu import generate_best_sbenu_plans
+    from repro_torch.graph.dynamic import SnapshotStore, stream_width_floors
+    from repro_torch.graph.generate import edge_stream
+    from repro_torch.kernels import sorted_intersect as si
+    g0, batches = edge_stream(n=300, m_init=1500, steps=3, batch=80,
+                              seed=4, delete_frac=0.3)
+    plans = generate_best_sbenu_plans(get_pattern(pname),
+                                      GraphStats(300, 1500, delta_edges=80))
+    d, dd = stream_width_floors(g0, batches)
+    stores = {dev: SnapshotStore(g0) for dev in ("cpu", "cuda")}
+    backends = {dev: SBenuTorchBackend(d_min=d, delta_d_min=dd,
+                                       snapshot_storage=storage, device=dev)
+                for dev in ("cpu", "cuda")}
+    for batch in batches:
+        out = {}
+        for dev, store in stores.items():
+            store.begin_step(batch)
+            si.launches = 0
+            st = drive(backends[dev], plans, store,
+                       ExecutorConfig(batch=16, collect_matches=True))
+            out[dev] = (st, si.launches)
+            store.end_step()
+        (c, _), (g, launches) = out["cpu"], out["cuda"]
+        assert launches > 0
+        assert g.extras["delta_plus"] == c.extras["delta_plus"]
+        assert g.extras["delta_minus"] == c.extras["delta_minus"]
+        np.testing.assert_array_equal(g.extras["level_sizes"],
+                                      c.extras["level_sizes"])
+    assert backends["cuda"].dstore.rebuilds == 1
+
+
+@pytest.mark.cuda
+def test_device_derive_equals_derive_host(card):
+    """derive_rows on the card == the host twin the host storage uses."""
+    from repro_torch.graph.dynamic import (DeviceSnapshotStore,
+                                           SnapshotStore, derive_rows)
+    from repro_torch.graph.generate import edge_stream
+    g0, batches = edge_stream(n=2000, m_init=16000, steps=2, batch=3000,
+                              seed=1, delete_frac=0.3)
+    st = SnapshotStore(g0)
+    host = DeviceSnapshotStore(st, storage="host", device="cpu")
+    for batch in batches:
+        st.begin_step(batch)
+        host._ensure_prev_fits()
+        for di, delta in (("out", st.delta_out), ("in", st.delta_in)):
+            tids, merged = host._derive_host(host._prev[di], delta)
+            vals, signs, _ = host._delta_buffers(delta)
+            got = derive_rows(
+                torch.from_numpy(host._prev[di].to_rows()).to(card),
+                torch.from_numpy(tids).to(card),
+                torch.from_numpy(vals).to(card),
+                torch.from_numpy(signs).to(card), st.n)
+            np.testing.assert_array_equal(got.cpu().numpy(), merged)
+        host.step_snapshot()
+        st.end_step()
+
+
+@pytest.mark.cuda
+def test_prefetch_race_serves_staged_rows_exactly(card):
+    """The side-stream copy of a staged block is held back (a long sleep
+    queued ahead of it), the host refills the pinned buffers and the
+    store right after each prefetch returns, and lookups must still
+    serve exactly the rows that were staged."""
+    from repro_torch.distributed.rowcache import DeviceRowCache
+    from repro_torch.graph.hoststore import HostRowStore
+    n, d, stage = 24000, 4096, 8192
+    rng = np.random.default_rng(0)
+    rows = rng.integers(0, n, (n + 1, d), dtype=np.int32)
+    rows[n] = n
+    oracle = rows.copy()
+    store = HostRowStore([rows], n, n + 1)
+    cache = DeviceRowCache(store, capacity_rows=4 * stage, hot=0,
+                           stage_rows=stage, device=card)
+    blocks = [np.arange(k * stage, min((k + 1) * stage, n))
+              for k in range(3)]
+    with torch.cuda.stream(cache._side):
+        torch.cuda._sleep(200_000_000)              # delay the first copy
+    for ids in blocks:
+        cache.prefetch(ids)       # the third refills pinned buffer 0
+        store.shards[0][ids] = -7                   # refill the host side
+    assert cache.stats.prefetch_rows == n
+    got = cache.lookup(np.concatenate(blocks))
+    np.testing.assert_array_equal(got.cpu().numpy(), oracle[:n])
+    assert cache.stats.cold_rows == 0
+    assert cache.stats.prefetch_used == n
