@@ -52,15 +52,21 @@ Phase 1 also counts the HGMMA (``wgmma``) instructions in the flash
 library's SASS (``cuobjdump``) and fails if there are none. Phase 2 times
 ``sorted_intersect`` on b with holes anywhere and on b with holes only in
 its tail, and also holds rmsnorm and flash_attention against their plain
-versions (rmsnorm: 1e-5 in f32, one bf16 ulp of the output in bf16;
-flash: 2e-5 with f32 inputs, 2e-2 abs with bf16 inputs against the f32
-plain result, on contiguous tensors and on ``[B, H, T, d]`` views of
-``[B, T, H, d]`` ones) and times them at the prefill shape (rmsnorm and
-``F.rms_norm`` as the median of ``RMS_ROUNDS`` alternating rounds) beside
-the plain version, the bound (the larger of bytes over the memory rate and
-flops over the dense bf16 tensor-core rate) and one PyTorch library call
-(``F.rms_norm``, ``F.scaled_dot_product_attention``), timed only here;
-flash also on the layer's views and at d = 128, each beside its bound.
+versions (rmsnorm: 1e-5 in f32, one bf16 ulp of the output in bf16, on
+both of its bodies: every register-body width of the three configs, an
+odd width and a misaligned view; flash: 2e-5 with f32 inputs, 2e-2 abs
+with bf16 inputs against the f32 plain result, on contiguous tensors and
+on ``[B, H, T, d]`` views of ``[B, T, H, d]`` ones) and times them at the
+prefill shape beside the plain version, the bound (the larger of bytes
+over the memory rate and flops over the dense bf16 tensor-core rate) and
+one PyTorch library call (``F.rms_norm``,
+``F.scaled_dot_product_attention``), timed only here; flash also on the
+layer's views and at d = 128, each beside its bound. rmsnorm and
+``F.rms_norm`` are timed at the prefill rows and the decode rows
+(``rmsnorm_timing``): device-only by a replayed CUDA graph, eager, and
+host µs per call, medians of ``RMS_ROUNDS`` alternating rounds; the
+kernels line takes the device-only time. Phase 5 also requires every
+rmsnorm launch on the kernel's register body.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It exits non-zero with no
@@ -502,6 +508,77 @@ def rotating(fn, args_list):
     return call
 
 
+def rmsnorm_timing(dev, bandwidth: float) -> dict:
+    """rmsnorm_cuda and F.rms_norm at the prefill rows [16384, 896] and the
+    decode rows [4, 896] bf16, in RMS_ROUNDS rounds that alternate which
+    goes first. A round takes for each: device ms per launch (one replayed
+    CUDA graph of 40 launches, ``rmsnorm_ab.graph_ms``), eager ms per
+    launch (CUDA events around 40 eager launches) and host µs per call of
+    the op as a layer calls it (``ops.rmsnorm``, ``F.rms_norm``;
+    ``rmsnorm_ab.host_us``).
+    Launches rotate over four input sets (117 MB at the prefill rows, more
+    than the 50 MB L2). Returns, per row count, the medians by impl and
+    metric, the plain version's eager ms and the bytes bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch.rmsnorm_ab import LAUNCHES, graph_ms, host_us
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    d, res = 896, {}
+    log(f"  rmsnorm timing: device ms = one replay of a CUDA graph of "
+        f"{LAUNCHES} launches / {LAUNCHES}; eager ms = CUDA events "
+        f"around {LAUNCHES} eager launches; host µs = host clock over "
+        f"many calls; medians of {RMS_ROUNDS} alternating rounds")
+    for rows, calls in ((LM_BATCH * LM_SEQ, 200), (LM_BATCH, 2000)):
+        sets = [(torch.randn((rows, d), generator=gen, device=dev
+                             ).to(torch.bfloat16),
+                 torch.randn((d,), generator=gen, device=dev
+                             ).to(torch.bfloat16)) for _ in range(4)]
+        x, g = sets[0]
+        impls = {
+            "kernel": (lambda x, g: rn.rmsnorm_cuda(x, g, 1e-6),
+                       lambda: ops.rmsnorm(x, g, 1e-6)),
+            "F.rms_norm": (lambda x, g: F.rms_norm(x, (d,), g, 1e-6),
+                           lambda: F.rms_norm(x, (d,), g, 1e-6))}
+        graphs = {k: graph_ms(fn, sets) for k, (fn, _) in impls.items()}
+        rounds = {k: {"device_ms": [], "eager_ms": [], "host_us": []}
+                  for k in impls}
+        for r in range(RMS_ROUNDS):
+            for k in (list(impls) if r % 2 == 0 else list(impls)[::-1]):
+                fn, op = impls[k]
+                rounds[k]["device_ms"].append(graphs[k]())
+                rounds[k]["eager_ms"].append(
+                    cuda_time_ms(rotating(fn, sets), LAUNCHES))
+                rounds[k]["host_us"].append(host_us(op, calls))
+        res[rows] = {
+            "bound_ms": (2 * rows * d + d) * 2 / bandwidth * 1e3,
+            "plain_eager_ms": cuda_time_ms(rotating(
+                lambda x, g: ref.rmsnorm(x, g, 1e-6), sets), 8)}
+        for k, metrics in rounds.items():
+            res[rows][k] = {m: statistics.median(v)
+                            for m, v in metrics.items()}
+            for m, v in metrics.items():
+                log(f"  rmsnorm [{rows}, {d}] bf16 {k} {m}: rounds "
+                    f"{[round(t, 5) for t in v]}, median "
+                    f"{statistics.median(v):.5f}")
+        r = res[rows]
+        log(f"  rmsnorm [{rows}, {d}] bf16: kernel device "
+            f"{r['kernel']['device_ms']:.5f} ms / eager "
+            f"{r['kernel']['eager_ms']:.5f} ms / host "
+            f"{r['kernel']['host_us']:.2f} us; F.rms_norm device "
+            f"{r['F.rms_norm']['device_ms']:.5f} ms / eager "
+            f"{r['F.rms_norm']['eager_ms']:.5f} ms / host "
+            f"{r['F.rms_norm']['host_us']:.2f} us; plain eager "
+            f"{r['plain_eager_ms']:.5f} ms; bytes bound "
+            f"{r['bound_ms']:.6g} ms (the kernel on the device at "
+            f"{100 * r['bound_ms'] / r['kernel']['device_ms']:.1f}% of it)")
+        del graphs, sets, x, g
+        torch.cuda.empty_cache()
+    return res
+
+
 def phase_lm_kernels(dev, bandwidth: float, peak: float) -> dict:
     import torch
     import torch.nn.functional as F
@@ -513,14 +590,26 @@ def phase_lm_kernels(dev, bandwidth: float, peak: float) -> dict:
     gen.manual_seed(SEED + 1)
     out = {}
 
-    # -- rmsnorm: the prefill rows, the decode rows, an odd width
+    # -- rmsnorm: the prefill rows, the decode rows, every register-body
+    # width of the three configs and of the card tests, an odd width and a
+    # misaligned view (the block body)
     worst = 0.0
-    for rows, d in ((LM_BATCH * LM_SEQ, 896), (4, 896), (1000, 1001)):
+    for rows, d, offset in ((LM_BATCH * LM_SEQ, 896, False), (4, 896, False),
+                            (1, 896, False), (33, 2048, False),
+                            (5, 3072, False), (3, 8192, False),
+                            (1000, 1001, False), (17, 896, True),
+                            (3, 8192, True)):
         for dtype in (torch.bfloat16, torch.float32):
             x = (torch.randn((rows, d), generator=gen, device=dev)
                  * 3).to(dtype)
             g = torch.randn((d,), generator=gen, device=dev).to(dtype)
+            if offset:             # one element into a buffer: misaligned
+                x = torch.empty(rows * d + 1, dtype=dtype,
+                                device=dev)[1:].view(rows, d).copy_(x)
+            by_body = dict(rn.body_launches)
             got = rn.rmsnorm_cuda(x, g, 1e-6)
+            body = "+".join(b for b, n in rn.body_launches.items()
+                            if n != by_body[b])
             want = ref.rmsnorm(x, g, 1e-6)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs()
@@ -530,43 +619,23 @@ def phase_lm_kernels(dev, bandwidth: float, peak: float) -> dict:
             else:
                 ok = bool((err <= bf16_ulp(want)).all())
                 tol = "one bf16 ulp"
-            log(f"  rmsnorm [{rows}, {d}] {str(dtype)[6:]}: max_abs_err "
-                f"{float(err.max()):.3g} (tolerance {tol}): "
+            log(f"  rmsnorm [{rows}, {d}] {str(dtype)[6:]}"
+                f"{' misaligned' if offset else ''} ({body} body): "
+                f"max_abs_err {float(err.max()):.3g} (tolerance {tol}): "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise RuntimeError(f"rmsnorm disagrees with its plain "
                                    f"version at [{rows}, {d}] {dtype}")
             if (rows, dtype) == (LM_BATCH * LM_SEQ, torch.bfloat16):
                 worst = float(err.max())
+    timing = rmsnorm_timing(dev, bandwidth)
     rows, d = LM_BATCH * LM_SEQ, 896
-    # four input sets, 117 MB in all: more than the 50 MB L2
-    sets = [((torch.randn((rows, d), generator=gen, device=dev)
-              ).to(torch.bfloat16),
-             torch.randn((d,), generator=gen, device=dev).to(torch.bfloat16))
-            for _ in range(4)]
-    nbytes = (2 * rows * d + d) * 2
-    # the kernel and F.rms_norm in RMS_ROUNDS rounds that alternate which
-    # goes first; each keeps the median of its rounds
-    timed = {"kernel": rotating(lambda x, g: rn.rmsnorm_cuda(x, g, 1e-6),
-                                sets),
-             "F.rms_norm": rotating(
-                 lambda x, g: F.rms_norm(x, (d,), g, 1e-6), sets)}
-    rounds = {k: [] for k in timed}
-    for r in range(RMS_ROUNDS):
-        for k in (list(timed) if r % 2 == 0 else list(timed)[::-1]):
-            rounds[k].append(cuda_time_ms(timed[k], 40))
-    for k, v in rounds.items():
-        log(f"  rmsnorm [{rows}, {d}] bf16 {k}: rounds "
-            f"{[round(t, 4) for t in v]} ms, median "
-            f"{statistics.median(v):.4f} ms")
+    t = timing[rows]
     out["rmsnorm"] = dict(
-        ms=statistics.median(rounds["kernel"]),
-        plain_ms=cuda_time_ms(rotating(lambda x, g: ref.rmsnorm(x, g, 1e-6),
-                                       sets), 8),
-        library_ms=statistics.median(rounds["F.rms_norm"]),
-        bound_ms=nbytes / bandwidth * 1e3, bound_by="bytes",
-        max_abs_err=worst, shape=f"[{rows}, {d}] bf16")
-    del sets
+        ms=t["kernel"]["device_ms"], plain_ms=t["plain_eager_ms"],
+        library_ms=t["F.rms_norm"]["device_ms"], bound_ms=t["bound_ms"],
+        bound_by="bytes", max_abs_err=worst,
+        shape=f"[{rows}, {d}] bf16, device-only (CUDA graph replay)")
 
     # -- flash_attention
     cases = [  # (B, Hq, Hkv, Tq, Tk, d, causal, strided)
@@ -675,13 +744,22 @@ def zero_lm_counts() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     fa.launches = rn.launches = 0
+    for body in rn.body_launches:
+        rn.body_launches[body] = 0
 
 
 def expect_counts(tag: str, want: dict) -> dict:
+    """The launch counts must be ``want``, and every rmsnorm launch on the
+    register body (d = 896 bf16, aligned, in every layer)."""
+    from repro_torch.kernels import rmsnorm as rn
     got = lm_counts()
-    log(f"  {tag}: launches {got}")
+    log(f"  {tag}: launches {got}, rmsnorm by body {rn.body_launches}")
     if got != want:
         raise RuntimeError(f"{tag}: launches {got}, expected {want}")
+    if rn.body_launches["register"] != got["rmsnorm"]:
+        raise RuntimeError(f"{tag}: rmsnorm launches by body "
+                           f"{rn.body_launches}, expected all on the "
+                           "register body")
     return got
 
 
@@ -1204,7 +1282,8 @@ def main() -> int:
         f"(nvcc {build.nvcc_path()})")
     for name, text in build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "smem")):
                 log(f"  [{name}] {line.strip()}")
     # the bf16 flash body must run on the tensor cores: its SASS holds
     # HGMMA (wgmma) instructions

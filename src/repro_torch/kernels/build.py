@@ -38,8 +38,10 @@ SIGNATURES: Dict[str, Tuple[str, List[type]]] = {
     # (ids, cand, adj, out, B, Dc, D, sentinel, device, stream)
     "gather_intersect": ("gather_intersect_launch",
                          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    # (x, gamma, out, R, d, eps, dtype, device, stream)
-    "rmsnorm": ("rmsnorm_launch", [_P, _P, _P, _I, _I, _F, _I, _I, _P]),
+    # (x, gamma, out, R, d, eps, dtype, body, vec, warps, rows_per_block,
+    #  grid, device, stream): the launch plan of kernels/rmsnorm.py
+    "rmsnorm": ("rmsnorm_launch", [_P, _P, _P, _I, _I, _F, _I, _I, _I, _I,
+                                   _I, _I, _I, _P]),
     # (q, k, v, out, B, Hq, Hkv, Tq, Tk, d, strides, causal, scale, dtype,
     #  device, stream); strides: 12 int64, (batch, head, row) of q, k, v, out
     "flash_attention": ("flash_attention_launch",

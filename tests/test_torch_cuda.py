@@ -11,8 +11,9 @@ Flash attention takes strided ``[B, H, T, d]`` views (the GQA layer's
 transposes of ``[B, T, H, d]`` activations) and raises on views TMA
 cannot read.
 RMSNorm: 1e-5 in f32 (another summation order), one bf16 ulp of the
-output in bf16 (one rounding). Flash attention: 2e-5 with f32 inputs
-(online softmax), 2e-2 abs with bf16 inputs against the f32 plain result
+output in bf16 (one rounding), on both of the kernel's bodies and in a
+replayed CUDA graph. Flash attention: 2e-5 with f32 inputs (online
+softmax), 2e-2 abs with bf16 inputs against the f32 plain result
 on the same (upcast) inputs. The smoke models on the card equal the same
 models on the CPU within 2e-4, as tests/test_torch_lm.py holds them to
 the JAX package.
@@ -168,6 +169,115 @@ def test_rmsnorm_kernel_vs_plain(card, rows, d, dtype):
         rn.rmsnorm_cuda(x.t(), g)
     with pytest.raises(ValueError, match="gamma"):
         rn.rmsnorm_cuda(x, g.float() if dtype != torch.float32 else g[:-1])
+
+
+def _offset_view(t: torch.Tensor) -> torch.Tensor:
+    """t's values in a contiguous view one element into a buffer (not
+    16-byte aligned)."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype,
+                       device=t.device)[1:].view(t.shape)
+    return view.copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,offset", [
+    (16384, 896, False), (4, 896, False), (1, 896, False), (0, 896, False),
+    (33, 2048, False), (5, 3072, False), (3, 8192, False), (7, 1001, False),
+    (17, 896, True), (3, 8192, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bodies_vs_plain(card, rows, d, offset, dtype):
+    """The register body at every group width the plan takes (1, 2, 4, 8
+    warps a row), and the block body (d = 1001, misaligned views, and rows
+    wider than the lanes' registers: f32 d = 8192, a misaligned d = 8192),
+    against the plain version; the per-body launch counters."""
+    from repro_torch.kernels import rmsnorm as rn
+    gen = torch.Generator(device=card).manual_seed(rows + d + offset)
+    x = (torch.randn((rows, d), generator=gen, device=card) * 3).to(dtype)
+    g = torch.randn((d,), generator=gen, device=card).to(dtype)
+    if offset:
+        x = _offset_view(x)
+    aligned = x.data_ptr() % 16 == 0
+    assert aligned != offset
+    body = rn.rmsnorm_plan(rows, d, dtype, aligned).body
+    assert body == ("block" if offset or d == 1001 or
+                    (d == 8192 and dtype == torch.float32) else "register")
+    before, by_body = rn.launches, dict(rn.body_launches)
+    got = rn.rmsnorm_cuda(x, g, 1e-6)
+    torch.cuda.synchronize()
+    n = 1 if rows else 0
+    assert rn.launches == before + n
+    assert rn.body_launches == {**by_body, body: by_body[body] + n}
+    want = ref.rmsnorm(x, g, eps=1e-6)
+    assert got.shape == want.shape and got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= bf16_ulp(want)).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4, 16384])
+def test_rmsnorm_graph_replay_equals_eager(card, rows):
+    """rmsnorm_cuda captured in a CUDA graph and replayed on new inputs ==
+    eager on them; capturing counts one launch a captured call, a replay
+    none."""
+    from repro_torch.kernels import rmsnorm as rn
+    gen = torch.Generator(device=card).manual_seed(rows)
+    x = torch.randn((rows, 896), generator=gen, device=card).bfloat16()
+    g = torch.randn((896,), generator=gen, device=card).bfloat16()
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):                  # warm-up off the graph
+        rn.rmsnorm_cuda(x, g)
+    torch.cuda.current_stream(card).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = rn.launches
+    with torch.cuda.graph(graph):
+        outs = [rn.rmsnorm_cuda(x, g) for _ in range(3)]
+    assert rn.launches == before + 3
+    x.copy_(torch.randn((rows, 896), generator=gen, device=card))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert rn.launches == before + 3
+    want = rn.rmsnorm_cuda(x, g)
+    for out in outs:
+        assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_launcher_refuses_plans_it_cannot_run(card):
+    """The C launcher checks the plan it is given and returns
+    cudaErrorInvalidValue (1) for one it cannot run, launching nothing."""
+    from repro_torch.kernels import rmsnorm as rn
+    x = torch.randn((8, 896), device=card).bfloat16()
+    g = torch.randn((896,), device=card).bfloat16()
+    out = torch.empty_like(x)
+    good = rn.rmsnorm_plan(8, 896, torch.bfloat16, True)
+    assert good == ("register", 8, 1, 8, 1)
+
+    def launch(plan, xp=x.data_ptr()):
+        return rn._launcher()(
+            xp, g.data_ptr(), out.data_ptr(), 8, 896, 1e-6, 1,
+            rn.BODY_CODES.get(plan.body, 7), *plan[1:], card.index,
+            torch.cuda.current_stream(card).cuda_stream)
+    bad = [good._replace(grid=2),                  # more blocks than tiles
+           good._replace(grid=0),
+           good._replace(rows_per_block=4),        # grid != tiles
+           good._replace(warps=2),                 # 512 threads
+           good._replace(warps=0),
+           good._replace(warps=3, rows_per_block=1, grid=8),  # no instance
+           good._replace(vec=4),
+           good._replace(body="other"),
+           good._replace(body="block"),            # rows_per_block != 1
+           good._replace(body="block", rows_per_block=1, vec=3, grid=8),
+           good._replace(vec=1, rows_per_block=1, grid=8)]  # regs: vectors
+    for plan in bad:
+        assert launch(plan) == 1, plan
+    assert launch(good, xp=x.data_ptr() + 2) == 1   # misaligned x
+    assert launch(good) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, rn.rmsnorm_cuda(x, g), rtol=0, atol=0)
 
 
 @pytest.mark.cuda
