@@ -46,7 +46,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    every step of q1' equals an independent directed-3-cycle count from
    the edge keys (``cycle_trace``: sum((A A) o A^T), per reported match as
    fixed at mid size) and q2' on the kernel equals q2' on the binary
-   probe, with one snapshot rebuild over the stream.
+   probe, with one snapshot rebuild over the stream;
+8. the multi-device engines over one NCCL process group of world size 1
+   (one card; NCCL takes one rank a card), set up in this process through
+   a file store in a temporary directory and destroyed at the end. 8a,
+   before phase 7 (phase 4's graph is dropped there): ``dist`` over all
+   starts of phase 4's graph, rebalanced, with no hot rows and with 4%
+   of the rows replicated, equals the independent count and phase 4's
+   level sizes (the second run profiled); on phase 3's graph the join
+   baseline and ``dist`` equal phase 3's triangle and square counts, the
+   join's shuffled bytes printed beside ``dist``'s cold rows x D x 4.
+   8b, after phase 7: ``sbenu-dist`` on phase 7's full stream (the same
+   G_0, batches, widths and plans) equals phase 7's q1' independent
+   count and q2' ``sbenu-torch`` counts on every step, with one sharded
+   snapshot build.
 
 Phase 1 also counts the HGMMA (``wgmma``) instructions in the flash
 library's SASS (``cuobjdump``) and fails if there are none. Phase 2 times
@@ -118,6 +131,10 @@ SBENU_PATTERNS = ("dtoy", "q1'", "q2'", "q3'", "q5'")
 SB_MID = (1000, 2000, 300, 3)
 SB_FULL = (1_000_000, 8_000_000, 100_000, 3)
 SB_DELETE, SB_BATCH = 0.3, 4096
+# phase 8: the full-size dist triangle with no hot rows and with phase 6's
+# 4% of the rows replicated; the mid-size join patterns
+DIST_HOT = (0, int(OOC_HOT_FRAC * FULL_N))
+JOIN_PATTERNS = ("triangle", "square")
 
 
 @contextlib.contextmanager
@@ -467,9 +484,11 @@ def phase_full(dev) -> dict:
     torch.cuda.empty_cache()
     plan = generate_best_plan(get_pattern("triangle"), g.stats())
     launches = {"sorted_intersect": 0, "gather_intersect": 0}
+    levels = None
     for engine in ("torch", "torch-gpu"):
         st = run_backend(engine, plan, g, dev, batch=FULL_BATCH,
                          caps=FULL_CAPS)
+        levels = levels or st.extras["level_sizes"].tolist()
         log(describe(f"triangle {engine:9s}", st)
             + f" (batch {FULL_BATCH}, caps {FULL_CAPS}, all {g.n} starts)")
         if st.count != want:
@@ -481,7 +500,7 @@ def phase_full(dev) -> dict:
     for k, v in launches.items():
         if v == 0:
             raise RuntimeError(f"the main path never launched {k}")
-    return launches, g, want
+    return launches, g, want, levels
 
 
 # ---------------------------------------------------------------------------
@@ -1211,6 +1230,7 @@ def phase_sbenu(dev) -> int:
                 for k in runs}
     c_prev = cycle_trace(keys, n, dev) // per_match
     launches = 0
+    answers = []
     for step, batch in enumerate(batches, 1):
         dels, ins = batch_keys(batch, n, "-"), batch_keys(batch, n, "+")
         u_keys = np.setdiff1d(keys, dels, assume_unique=True)
@@ -1249,12 +1269,175 @@ def phase_sbenu(dev) -> int:
                 k.extras["level_sizes"].tolist() != \
                 p.extras["level_sizes"].tolist():
             raise RuntimeError(f"q2' step {step}: kernel != binary probe")
+        answers.append({"q1'": want,
+                        "q2'": (kc.matches_plus, kc.matches_minus)})
         c_prev = c_cur
     rebuilds = backends["q1'"].dstore.rebuilds
     log(f"  snapshot rebuilds over the stream: {rebuilds}")
     if rebuilds != 1:
         raise RuntimeError(f"{rebuilds} snapshot rebuilds, expected 1")
     log(f"  phase 7: {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    # phase 8b drives sbenu-dist over the same stream and plans
+    stream = dict(g0=g0, batches=batches, d=d, dd=dd, plans=plans,
+                  answers=answers)
+    return launches, stream
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: distributed B-BENU / S-BENU over NCCL, and the join baseline
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def nccl_world_of_one(dev):
+    """One NCCL process group of world size 1 in this process, meeting
+    through a file store in a temporary directory (no network); destroyed
+    on exit. There is one card, and NCCL takes one rank a card."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def describe_dist(tag, st) -> str:
+    x = st.extras
+    lv = x["per_shard_level_sizes"]
+    return (f"  {tag}: matches {st.count}, wall {x['wall_s']:.3f} s "
+            f"(set-up {x['prepare_s']:.3f} s), chunks run/split/retried "
+            f"{st.chunks_run}/{st.chunks_split}/{st.chunks_retried}, levels "
+            f"{lv.sum(axis=1).tolist()}, cold rows {x['cold_rows_fetched']}, "
+            f"request drops {st.drops_seen}, final req_cap {x['req_cap']}, "
+            f"launches {x['launches']}, peak "
+            f"{x['peak_bytes'] / 2**30:.2f} GiB")
+
+
+def phase_dist(dev, g_mid, mid_runs, g_full, tri_full, full_levels) -> int:
+    """``dist`` over a world of one NCCL rank: the full-size triangle with
+    and without hot rows (rebalanced) == the independent count, its level
+    sizes == phase 4's ``torch`` run; the join baseline on phase 3's graph
+    == phase 3's counts, its shuffled bytes beside a ``dist`` run's cold
+    row bytes. Returns the runs' intersect launches."""
+    import torch
+    from repro_torch.core.baseline_join import enumerate_join
+    from repro_torch.core.pattern import get_pattern
+    from repro_torch.core.plangen import generate_best_plan
+    from repro_torch.graph.storage import padded_width
+    t_phase = time.perf_counter()
+    plan = generate_best_plan(get_pattern("triangle"), g_full.stats())
+    d = padded_width(int(g_full.deg.max()), lane=128)
+    launches = 0
+    for hot in DIST_HOT:
+        kw = dict(hot=hot, rebalance=True)
+
+        def run():
+            return run_backend("dist", plan, g_full, dev, backend_kw=kw,
+                               batch=FULL_BATCH, caps=FULL_CAPS)
+        if hot:        # the second run, under the profiler
+            held = {}
+            device_profile(f"triangle dist hot={hot}",
+                           lambda: held.setdefault("st", run()))
+            st = held["st"]
+        else:
+            st = run()
+        x = st.extras
+        log(describe_dist(f"triangle dist hot={hot}", st)
+            + f" (batch {FULL_BATCH}, caps {FULL_CAPS}, all {g_full.n} "
+            f"starts; response buffer [1, {x['req_cap']}, {d}] int32 = "
+            f"{x['req_cap'] * d * 4 / 1e9:.2f} GB)")
+        if st.count != tri_full:
+            raise RuntimeError(f"dist hot={hot}: {st.count} triangles, "
+                               f"independent count {tri_full}")
+        if x["per_shard_level_sizes"].sum(axis=1).tolist() != full_levels:
+            raise RuntimeError(f"dist hot={hot}: level sizes differ from "
+                               "phase 4's torch run")
+        if x["launches"]["sorted_intersect"] == 0:
+            raise RuntimeError("dist never launched sorted_intersect")
+        launches += x["launches"]["sorted_intersect"]
+        torch.cuda.empty_cache()
+    log(f"  full-size dist: {time.perf_counter() - t_phase:.1f} s")
+    for pname in JOIN_PATTERNS:
+        plan, cfg, want = mid_runs[pname]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        js = enumerate_join(get_pattern(pname), g_mid, device=dev)
+        torch.cuda.synchronize()
+        t_join = time.perf_counter() - t0
+        st = run_backend("dist", plan, g_mid, dev, **cfg)
+        if not js.matches == st.count == want.count:
+            raise RuntimeError(f"{pname}: join {js.matches}, dist "
+                               f"{st.count}, phase 3 {want.count}")
+        launches += st.extras["launches"]["sorted_intersect"]
+        cold = st.extras["cold_rows_fetched"]
+        row = padded_width(int(g_mid.deg.max()), lane=128) * 4
+        log(describe_dist(f"{pname:8s} dist", st))
+        log(f"  {pname:8s} join: matches {js.matches}, wall {t_join:.3f} s, "
+            f"steps {js.steps}, max intermediate rows "
+            f"{js.max_intermediate_rows}, bytes shuffled "
+            f"{js.bytes_shuffled} vs dist cold rows {cold} x {row} B = "
+            f"{cold * row} B ({js.bytes_shuffled / max(cold * row, 1):.2f}x)")
+    log(f"  phase 8a: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_sbenu_dist(dev, stream) -> int:
+    """``sbenu-dist`` over a world of one NCCL rank on phase 7's full
+    stream: q1' == phase 7's independent count and q2' == phase 7's
+    ``sbenu-torch`` on every step, one sharded snapshot build. Returns
+    the runs' intersect launches."""
+    import torch
+    from repro_torch.core.executor import SBenuDistBackend
+    from repro_torch.graph.dynamic import SnapshotStore
+    t_phase = time.perf_counter()
+    store = SnapshotStore(stream["g0"])
+    log(f"  store from phase 7's G_0: {time.perf_counter() - t_phase:.1f} s")
+    backends = {k: SBenuDistBackend(collect="counts", d_min=stream["d"],
+                                    delta_d_min=stream["dd"], device=dev)
+                for k in ("q1'", "q2'")}
+    launches = 0
+    for step, (batch, want) in enumerate(
+            zip(stream["batches"], stream["answers"]), 1):
+        store.begin_step(batch)
+        n_starts = len(store.start_vertices())
+        for tag, be in backends.items():
+            st = run_stream_step(dev, be, stream["plans"][tag], store,
+                                 batch=SB_BATCH, max_retries=12)
+            c, x = st.extras["counters"], st.extras
+            log(f"  step {step} {tag} sbenu-dist: dR+ {c.matches_plus} dR- "
+                f"{c.matches_minus}, wall {x['wall_s']:.3f} s, "
+                f"{len(batch) / x['wall_s']:.0f} updates/s, {n_starts} "
+                f"starts, chunks run/split {st.chunks_run}/"
+                f"{st.chunks_split}, levels "
+                f"{x['per_shard_level_sizes'].sum(axis=1).tolist()}, cold "
+                f"rows {x['cold_rows_fetched']}, request drops "
+                f"{st.drops_seen}, req_cap {x['req_cap']}, sorted_intersect "
+                f"launches {x['launches']}, snapshot "
+                f"{x['snapshot_device_bytes']} B on the card, peak "
+                f"{x['peak_bytes'] / 2**30:.2f} GiB")
+            if (c.matches_plus, c.matches_minus) != tuple(want[tag]):
+                raise RuntimeError(f"{tag} step {step}: sbenu-dist "
+                                   f"{c.matches_plus}/{c.matches_minus}, "
+                                   f"phase 7 {want[tag]}")
+            if x["launches"] == 0:
+                raise RuntimeError(f"{tag}: sbenu-dist never launched the "
+                                   "kernel")
+            launches += x["launches"]
+        store.end_step()
+    rebuilds = backends["q1'"].dstore.rebuilds
+    if rebuilds != 1 or backends["q2'"].dstore is not \
+            backends["q1'"].dstore:
+        raise RuntimeError(f"{rebuilds} sharded snapshot builds, expected "
+                           "one shared by both patterns")
+    log(f"  phase 8b: {time.perf_counter() - t_phase:.1f} s")
     torch.cuda.empty_cache()
     return launches
 
@@ -1313,17 +1496,28 @@ def main() -> int:
     g_mid, tri_mid, mid_runs = phase_mid(dev)
     log("phase 4: full size (main path)")
     with gc_paused():
-        launches, g_full, tri_full = phase_full(dev)
+        launches, g_full, tri_full, full_levels = phase_full(dev)
     log("phase 5: LM serving path at full width (qwen2-0.5b)")
     launches.update(phase_lm(dev))
     log("phase 6: out-of-core B-BENU (host row store + device row cache)")
     with gc_paused():
         launches["sorted_intersect"] += phase_ooc(
             dev, g_mid, tri_mid, mid_runs, g_full, tri_full)
-    del g_mid, mid_runs, g_full
-    log("phase 7: streaming S-BENU")
-    with gc_paused():
-        launches["sorted_intersect"] += phase_sbenu(dev)
+    with nccl_world_of_one(dev):
+        log("phase 8a: dist over NCCL (a world of one rank) and the join "
+            "baseline")
+        with gc_paused():
+            launches["sorted_intersect"] += phase_dist(
+                dev, g_mid, mid_runs, g_full, tri_full, full_levels)
+        del g_mid, mid_runs, g_full
+        log("phase 7: streaming S-BENU")
+        with gc_paused():
+            n, stream = phase_sbenu(dev)
+            launches["sorted_intersect"] += n
+        log("phase 8b: sbenu-dist over NCCL on phase 7's full stream")
+        with gc_paused():
+            launches["sorted_intersect"] += phase_sbenu_dist(dev, stream)
+        del stream
 
     sources = {"sorted_intersect": ("src/repro_torch/csrc/sorted_intersect.cu",
                                     "src/repro/kernels/sorted_intersect.py:50"),

@@ -10,6 +10,14 @@ weights:
         n, "cpu")
     sd = lm_state_dict_from_numpy(jax.tree.map(np.asarray, params), cfg)
     model.load_state_dict(sd)
+    shards, hot_rows, jspec = build_row_shards(jax_graph, S, hot=8)
+    shard, hot, spec = row_shards_from_numpy(
+        shards, hot_rows, dataclasses.asdict(jspec), rank, "cpu")
+    jblocks, jhot, jspec = jax_sharded_store.step_sharded()
+    blocks, hot_blocks, spec = snapshot_shard_from_numpy(
+        {k: np.asarray(v) for k, v in jblocks.items()},
+        {k: np.asarray(v) for k, v in jhot.items()},
+        dataclasses.asdict(jspec), rank, "cpu")
 
 Nothing here imports the JAX package; the inputs are dicts, tuples and
 numpy arrays.
@@ -17,7 +25,7 @@ numpy arrays.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +33,8 @@ import torch
 from .core.engine_sbenu_torch import device_put_snapshot
 from .core.engine_torch import DeviceGraph
 from .core.instructions import Instr, Plan
-from .graph.dynamic import SNAPSHOT_BLOCKS, DeviceSnapshot
+from .distributed.rowstore import RowStoreSpec
+from .graph.dynamic import SNAPSHOT_BLOCKS, DeviceSnapshot, SnapshotShardSpec
 
 
 def _tuples(x: Any) -> Any:
@@ -113,3 +122,46 @@ def lm_state_dict_from_numpy(params: Mapping[str, Any],
         for name, leaf in leaves.items():
             sd[f"layers.{i}.{name}"] = _tensor(np.asarray(leaf)[i])
     return sd
+
+
+def row_shards_from_numpy(shards: np.ndarray, hot_rows: np.ndarray,
+                          spec_fields: Mapping[str, Any], rank: int, device
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     RowStoreSpec]:
+    """One rank's ``(local_shard [rps, D], hot_rows [hot+1, D], spec)``
+    from the reference's ``build_row_shards`` output: ``shards`` is its
+    ``int32[S, rps, D]`` array, ``hot_rows`` its replicated rows and
+    ``spec_fields`` ``dataclasses.asdict`` of its spec."""
+    spec = RowStoreSpec(**spec_fields)
+    shards = np.asarray(shards)
+    if shards.shape != (spec.n_shards, spec.rows_per_shard, spec.d):
+        raise ValueError(f"shards{shards.shape} do not match {spec}")
+    return (torch.from_numpy(np.array(shards[rank], np.int32)).to(device),
+            torch.from_numpy(np.array(hot_rows, np.int32)).to(device), spec)
+
+
+def snapshot_shard_from_numpy(blocks: Mapping[str, np.ndarray],
+                              hot_blocks: Mapping[str, np.ndarray],
+                              spec_fields: Mapping[str, Any], rank: int,
+                              device
+                              ) -> Tuple[Dict[str, torch.Tensor],
+                                         Dict[str, torch.Tensor],
+                                         SnapshotShardSpec]:
+    """One rank's slice of a reference sharded six-block snapshot
+    (``ShardedDeviceSnapshotStore.step_sharded``): its ``[rps, W]`` rows
+    of each of the six ``[S * rps, W]`` blocks, the replicated
+    ``[hot+1, W]`` blocks as they are, and the spec — the same shape
+    :meth:`repro_torch.graph.dynamic.ShardedDeviceSnapshotStore.
+    step_sharded` returns."""
+    spec = SnapshotShardSpec(**spec_fields)
+    rps = spec.rows_per_shard
+    mine, hot = {}, {}
+    for k, b in blocks.items():
+        b = np.asarray(b)
+        if b.shape[0] != spec.n_shards * rps:
+            raise ValueError(f"{k}{b.shape} must have S * rps rows")
+        mine[k] = torch.from_numpy(
+            np.array(b[rank * rps:(rank + 1) * rps], np.int32)).to(device)
+        hot[k] = torch.from_numpy(
+            np.array(hot_blocks[k], np.int32)).to(device)
+    return mine, hot, spec

@@ -286,13 +286,16 @@ def make_typed_fetch(sentinel: int,
 def build_sbenu_instr_runner(plan: Plan, sentinel: int, caps: Sequence[int],
                              collect_matches: bool = False,
                              intersect_impl: str = "auto",
-                             compaction: str = "cumsum"
+                             compaction: str = "cumsum",
+                             post_expand: Optional[Callable] = None
                              ) -> Callable[..., SBenuEnumResult]:
     """The incremental instruction loop over a pluggable typed fetch.
 
     Returns ``run_instrs(fetch, starts, starts_valid)`` where ``fetch`` is
     a :func:`make_typed_fetch` selector. The intersect impl resolves per
-    call from the device of ``starts``.
+    call from the device of ``starts``. ``post_expand(env, valid)`` (if
+    given) runs after every DENU/ENU expansion — the distributed engine's
+    frontier rebalancer hook, identical to the static engine's.
     """
     check_sbenu_jit_supported(plan)
     live = _sbenu_liveness(plan)
@@ -361,6 +364,8 @@ def build_sbenu_instr_runner(plan: Plan, sentinel: int, caps: Sequence[int],
                     live[ip + 1], sentinel, compaction=compaction,
                     extra_cols=extra)
                 overflow = overflow + ov
+                if post_expand is not None:
+                    env, valid = post_expand(env, valid)
                 level_sizes.append(valid.sum())
                 lv += 1
             elif ins.op == INS:
@@ -390,18 +395,21 @@ def build_sbenu_instr_runner(plan: Plan, sentinel: int, caps: Sequence[int],
 def build_sbenu_enumerator(plan: Plan, sentinel: int, caps: Sequence[int],
                            collect_matches: bool = False,
                            intersect_impl: str = "auto",
-                           compaction: str = "cumsum"
+                           compaction: str = "cumsum",
+                           post_expand: Optional[Callable] = None
                            ) -> Callable[..., SBenuEnumResult]:
     """An incremental plan as a function of ``(snap: DeviceSnapshot,
     starts int32[B], starts_valid bool[B])`` on tensors of one device.
 
     ``caps[i]`` is the child-frontier capacity of the i-th expansion level
     (DENU or ENU). A result with ``overflow > 0`` must be discarded and
-    re-chunked by the driver.
+    re-chunked by the driver. ``post_expand`` goes to
+    :func:`build_sbenu_instr_runner`.
     """
     run_instrs = build_sbenu_instr_runner(
         plan, sentinel, caps, collect_matches=collect_matches,
-        intersect_impl=intersect_impl, compaction=compaction)
+        intersect_impl=intersect_impl, compaction=compaction,
+        post_expand=post_expand)
 
     def run(snap: DeviceSnapshot, starts: torch.Tensor,
             starts_valid: torch.Tensor) -> SBenuEnumResult:

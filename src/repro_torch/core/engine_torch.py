@@ -283,6 +283,7 @@ def build_enumerator(plan: Plan,
                      fetch: FetchFn,
                      collect_matches: bool = False,
                      intersect_impl: str = "auto",
+                     post_expand: Optional[Callable] = None,
                      compaction: str = "cumsum",
                      fused_rows: Optional[torch.Tensor] = None,
                      gather_intersect_impl: str = "auto"
@@ -301,6 +302,10 @@ def build_enumerator(plan: Plan,
     column instead of gathered rows, and the consuming INT/TRC runs
     ``kops.fused_gather_intersect``. Results are bit-equal to the unfused
     path.
+
+    ``post_expand(env, valid) -> (env, valid)`` (if given) runs right
+    after every ENU expansion, before its level size is taken: the
+    distributed engine's frontier rebalancer (core/engine_dist.py).
     """
     has_universe = check_jit_supported(plan)
     live = _liveness(plan)
@@ -373,6 +378,8 @@ def build_enumerator(plan: Plan,
                                          caps[enu_i], live[ip + 1], sentinel,
                                          compaction=compaction)
                 overflow = overflow + ov
+                if post_expand is not None:
+                    env, valid = post_expand(env, valid)
                 level_sizes.append(valid.sum())
                 enu_i += 1
             elif ins.op == RES:

@@ -6,18 +6,26 @@ overflowing chunk is re-chunked into smaller start batches before its
 capacities grow, so no match is ever dropped), and the backends are the
 port's own::
 
+    ref          pure-Python oracle interpreter         (core/ref_engine.py)
     torch        single-device frontier engine, unfused (core/engine_torch.py)
     torch-gpu    same engine, fused gather+intersect
                  fetch path (csrc/gather_intersect.cu)  (core/engine_torch.py)
+    dist         one process per shard over
+                 torch.distributed: row store by
+                 all_to_all, hot rows replicated        (core/engine_dist.py)
     oocache      out-of-core: host-RAM row shards +
                  bounded device row cache + async
                  prefetch                               (core/engine_ooc.py)
     sbenu        continuous/delta enumeration,
                  interpreted on the host                (core/sbenu.py)
     sbenu-torch  vectorized continuous enumeration      (core/engine_sbenu_torch.py)
+    sbenu-dist   the same over the rank-sharded
+                 six-block snapshot                     (core/engine_sbenu_dist.py)
 
-All but ``sbenu`` run on ``cuda`` unless given ``device=``; with no
-device and no card they raise.
+``ref`` and ``sbenu`` run on the host. The others run on ``cuda`` unless
+given ``device=``; with no device and no card they raise. ``dist`` and
+``sbenu-dist`` run in every rank of an initialised process group (NCCL
+with one card a rank, gloo with ``device='cpu'``) and raise without one.
 
     >>> from repro_torch.core.executor import make_executor
     >>> from repro_torch.core.pattern import get_pattern
@@ -324,6 +332,75 @@ class Executor:
 
 
 # --------------------------------------------------------------------------
+# Backend: reference interpreter (pure Python oracle)
+# --------------------------------------------------------------------------
+
+
+class RefBackend(ExecutorBackend):
+    """Per-task backtracking interpreter (core/ref_engine.py); the
+    correctness oracle, on the host.
+
+    Capacities do not exist here (recursion never overflows), but the
+    paper's θ task splitting does: heavy start vertices split into C2
+    slices inside :meth:`run_chunk`. On a VCBC plan the count is the
+    number of codes reported, as in the reference.
+    """
+
+    name = "ref"
+    splittable = True
+
+    def __init__(self, db=None, collect: str = "count",
+                 pattern: Optional[Pattern] = None):
+        self._db = db
+        self._collect = collect
+        self._given_pattern = pattern
+        self.engine = None
+
+    def prepare(self, plan: Plan, source: Graph,
+                config: ExecutorConfig) -> None:
+        from .ref_engine import RefEngine
+        self.plan, self.graph = plan, source
+        self.sentinel = source.n
+        collect = self._collect
+        if config.collect_matches and collect == "count":
+            collect = "matches"
+        self.engine = RefEngine(plan, self._pattern(plan), source,
+                                db=self._db, collect=collect)
+        self._theta = config.theta
+
+    def _pattern(self, plan: Plan) -> Pattern:
+        if self._given_pattern is not None:
+            return self._given_pattern
+        from .pattern import get_pattern
+        return get_pattern(plan.pattern_name)
+
+    def _n_starts(self) -> int:
+        return self.graph.n
+
+    def run_chunk(self, ids, valid, universe_chunk, caps) -> ChunkResult:
+        from .ref_engine import tasks_for_starts
+        eng = self.engine
+        tasks = tasks_for_starts(self.plan, eng.pattern, self.graph,
+                                 ids[valid], theta=self._theta)
+        m0 = eng.counters.matches
+        k0 = len(eng.matches)
+        eng.run(tasks=tasks)
+        matches = None
+        if eng.collect == "matches":
+            matches = np.asarray(eng.matches[k0:], np.int32).reshape(
+                -1, self.plan.n)
+        return ChunkResult(count=eng.counters.matches - m0, matches=matches)
+
+    def finalize(self, stats: ExecStats) -> None:
+        c = self.engine.counters
+        stats.extras.update(
+            dbq=c.dbq, int_=c.int_, trc=c.trc, trc_hits=c.trc_hits,
+            enu=c.enu, per_task_work=list(c.per_task_work),
+            remote_queries=self.engine.db.remote_queries,
+            total_queries=self.engine.db.total_queries)
+
+
+# --------------------------------------------------------------------------
 # Backends: single-device frontier engine
 # --------------------------------------------------------------------------
 
@@ -420,6 +497,138 @@ class TorchGpuBackend(TorchBackend):
 
     name = "torch-gpu"
     fused = True
+
+
+# --------------------------------------------------------------------------
+# Backend: one process per shard over torch.distributed
+# --------------------------------------------------------------------------
+
+
+def gather_to_all(group, row: torch.Tensor) -> torch.Tensor:
+    """``[S, *row.shape]``: every rank's ``row``, in rank order, on every
+    rank (one all_gather)."""
+    import torch.distributed as dist
+    rows = [torch.empty_like(row) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(rows, row, group=group)
+    return torch.stack(rows)
+
+
+class DistBackend(ExecutorBackend):
+    """SPMD frontier engine with the distributed row store
+    (core/engine_dist.py): this process is one rank of ``group`` (the
+    initialised world by default; raises when there is none).
+
+    Every rank walks the same global start batches (a multiple of S) and
+    runs its own ``B/S`` slice; one all_gather per chunk hands every rank
+    the per-rank counts, overflow, drops, cold rows and level sizes, so
+    every rank returns the same :class:`ChunkResult` and the driver takes
+    the same decisions everywhere. The device is ``cuda:<local rank>``
+    (NCCL) unless ``device=`` says otherwise; a device the group's backend
+    cannot carry raises.
+    """
+
+    name = "dist"
+
+    def __init__(self, group=None, hot: int = 0, rebalance: bool = False,
+                 req_cap: Optional[int] = None, device=None):
+        resolve_device(device)           # no card and no device: raise
+        self._group_arg = group
+        self._device_arg = device
+        self._hot = hot
+        self._rebalance = rebalance
+        self._req_cap0 = req_cap
+
+    def prepare(self, plan: Plan, source: Graph,
+                config: ExecutorConfig) -> None:
+        import torch.distributed as dist
+        from ..distributed.rowstore import build_row_shards
+        from .engine_dist import enumeration_mesh, rank_device
+        t0 = time.perf_counter()
+        self.plan, self.graph = plan, source
+        self.group = enumeration_mesh(self._group_arg)
+        self.device = rank_device(self.group, self._device_arg)
+        self.S = dist.get_world_size(self.group)
+        self.rank = dist.get_rank(self.group)
+        self.granularity = self.S
+        self.cap_multiple = self.S       # rebalancer stripes (driver rounds)
+        self.shard, self.hot_rows, self.spec = build_row_shards(
+            source, self.S, self.rank, hot=self._hot, device=self.device)
+        self.sentinel = self.spec.n
+        self.has_universe = check_jit_supported(plan)
+        batch_per_shard = max(config.batch // self.S, 1)
+        caps = list(config.caps) if config.caps is not None else \
+            default_caps(plan, batch_per_shard, self.spec.d)
+        self._caps0 = tuple(ceil_div(c, self.S) * self.S for c in caps)
+        self.req_cap = self._req_cap0 if self._req_cap0 is not None else \
+            max(64, 2 * batch_per_shard // self.S)
+        self._intersect = config.intersect_impl
+        self._uni = [torch.from_numpy(c).to(self.device)
+                     for c in build_universe_chunks(
+                         source.n, config.universe_chunk)] \
+            if self.has_universe else [None]
+        self._steps: Dict[Tuple[Tuple[int, ...], int], Callable] = {}
+        self._per_shard = np.zeros(self.S, np.int64)
+        self._level_acc: Optional[np.ndarray] = None
+        self._cold = 0
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._prepare_s = time.perf_counter() - t0
+
+    def _n_starts(self) -> int:
+        return self.graph.n
+
+    def start_batches(self, config: ExecutorConfig):
+        yield from start_id_batches(self.graph.n,
+                                    ceil_div(config.batch, self.S) * self.S)
+
+    def universe_chunks(self, config: ExecutorConfig):
+        return self._uni
+
+    def initial_caps(self, config: ExecutorConfig) -> Tuple[int, ...]:
+        return self._caps0
+
+    def escalate_requests(self) -> None:
+        self.req_cap *= 2
+
+    def _step(self, caps: Tuple[int, ...], req_cap: int) -> Callable:
+        key = (caps, req_cap)
+        if key not in self._steps:
+            from .engine_dist import build_distributed_step
+            self._steps[key] = build_distributed_step(
+                self.plan, self.spec, self.group, caps, req_cap,
+                rebalance=self._rebalance, intersect_impl=self._intersect)
+        return self._steps[key]
+
+    def run_chunk(self, ids, valid, universe_chunk, caps) -> ChunkResult:
+        w = ids.shape[0] // self.S
+        mine = slice(self.rank * w, (self.rank + 1) * w)
+        starts = torch.from_numpy(ids[mine]).to(self.device)
+        starts_valid = torch.from_numpy(valid[mine]).to(self.device)
+        count, overflow, cold, drops, levels = self._step(
+            tuple(caps), self.req_cap)(self.shard, self.hot_rows, starts,
+                                       starts_valid, universe_chunk)
+        # one gather, one device->host read: [S, 4 + levels] on every rank
+        table = gather_to_all(self.group, torch.stack(
+            [count, overflow, cold, drops, *levels])).cpu().numpy()
+        ov, dr = int(table[:, 1].sum()), int(table[:, 3].sum())
+        if ov or dr:
+            return ChunkResult(count=0, overflow=ov, drops=dr)
+        self._per_shard += table[:, 0]
+        self._cold += int(table[:, 2].sum())
+        lv = table[:, 4:].T
+        self._level_acc = lv if self._level_acc is None \
+            else self._level_acc + lv
+        return ChunkResult(count=int(table[:, 0].sum()))
+
+    def finalize(self, stats: ExecStats) -> None:
+        stats.extras.update(
+            per_shard_counts=self._per_shard,
+            per_shard_level_sizes=(
+                self._level_acc if self._level_acc is not None
+                else np.zeros((0, self.S), np.int64)),
+            cold_rows_fetched=self._cold,
+            req_cap=self.req_cap,
+            prepare_s=self._prepare_s)   # the rank's rows to the device
 
 
 # --------------------------------------------------------------------------
@@ -773,12 +982,226 @@ class SBenuTorchBackend(ExecutorBackend):
             rebuilds=self.dstore.rebuilds)
 
 
+# --------------------------------------------------------------------------
+# Backend: distributed S-BENU (one process per shard of the six-block
+# snapshot)
+# --------------------------------------------------------------------------
+
+
+class SBenuDistBackend(ExecutorBackend):
+    """SPMD delta-frontier engine (core/engine_sbenu_dist.py): this process
+    is one rank of ``group`` (the initialised world by default).
+
+    The six-block snapshot is row-block partitioned over the ranks and
+    stays resident across time steps
+    (:class:`~repro_torch.graph.dynamic.ShardedDeviceSnapshotStore`);
+    typed DBQs are request/response all_to_alls against the owning rank
+    with the top-``hot`` rows replicated. Every rank walks the same global
+    start batches (``granularity = S``) and runs its ``B/S`` slice; the
+    per-rank ΔR_t^± counts, overflow, drops, cold rows and level sizes
+    (and the collected match rows) are gathered to every rank, so every
+    rank reports the same result. Frontier capacities are per rank, kept
+    divisible by S through the driver's ``cap_multiple`` contract (the
+    rebalancer's stripe exchange needs it).
+    """
+
+    name = "sbenu-dist"
+    splittable = True
+
+    def __init__(self, collect: str = "matches", lane: int = 8,
+                 d_min: int = 0, delta_d_min: int = 0,
+                 compaction: str = "cumsum", group=None, hot: int = 0,
+                 rebalance: bool = False, req_cap: Optional[int] = None,
+                 device=None):
+        resolve_device(device)           # no card and no device: raise
+        self._collect_mode = collect
+        self._lane = lane
+        self._d_min = d_min
+        self._delta_d_min = delta_d_min
+        self._compaction = compaction
+        self._group_arg = group
+        self._device_arg = device
+        self._hot = hot
+        self._rebalance = rebalance
+        self._req_cap0 = req_cap
+        # steps outlive prepare(): a backend reused across time steps
+        # (run_timestep(backend=...)) builds them once per stream
+        self._runners: Dict[Tuple, Callable] = {}
+
+    def prepare(self, plans: Sequence[Plan], source,
+                config: ExecutorConfig) -> None:
+        import torch.distributed as dist
+        from ..graph.dynamic import ShardedDeviceSnapshotStore
+        from .engine_dist import enumeration_mesh, rank_device
+        from .engine_sbenu_dist import BLOCK_ORDER
+        from .engine_sbenu_torch import plan_level_count, sbenu_level_fanouts
+        self.plans = list(plans)
+        plan_ids = tuple(id(p) for p in self.plans)
+        if getattr(self, "_cached_plan_ids", None) != plan_ids:
+            self._runners.clear()
+            self._cached_plan_ids = plan_ids
+        self.group = enumeration_mesh(self._group_arg)
+        self.device = rank_device(self.group, self._device_arg)
+        self.S = dist.get_world_size(self.group)
+        self.rank = dist.get_rank(self.group)
+        self.granularity = self.S
+        self.cap_multiple = self.S
+        self.store = source
+        self.sentinel = source.n
+        self._starts = np.asarray(sorted(source.start_vertices()), np.int32)
+        self.dstore = ShardedDeviceSnapshotStore.for_store(
+            source, self.group, lane=self._lane, d_min=self._d_min,
+            delta_d_min=self._delta_d_min, hot=self._hot,
+            device=self.device)
+        blocks, hot_blocks, self.spec = self.dstore.step_sharded()
+        self._block_args = tuple(blocks[k] for k in BLOCK_ORDER) + \
+            tuple(hot_blocks[k] for k in BLOCK_ORDER)
+        self._widths = tuple(int(blocks[k].shape[1]) for k in BLOCK_ORDER)
+        # global batch: a multiple of S so every rank gets an equal slice
+        self._B = ceil_div(max(config.batch, self.S), self.S) * self.S
+        w = self._B // self.S
+        # per-rank Delta-ENU bound: each start emits exactly its delta
+        # row, and a rank owns a contiguous w-slice of the chunk — the
+        # worst slice's delta-edge total bounds the local first level
+        degs = np.array([len(source.delta_adj_out(int(v)))
+                         for v in self._starts], np.int64)
+        denu_cap = w
+        for s0 in range(0, len(degs), self._B):
+            chunk = degs[s0:s0 + self._B]
+            for k in range(self.S):
+                denu_cap = max(denu_cap, int(chunk[k * w:(k + 1) * w].sum()))
+        denu_cap = max(denu_cap, 8)
+        denu_cap = 1 << (denu_cap - 1).bit_length()
+        avg_deg = max(1, round(source.prev.m / max(source.n, 1)))
+        # one caps tuple for the whole chunk: per-plan slices, concatenated
+        # (the driver rounds each entry up to cap_multiple = S)
+        self._offsets: List[Tuple[int, int]] = []
+        caps: List[int] = []
+        for plan in self.plans:
+            n_lv = plan_level_count(plan)
+            if config.caps is not None:
+                c = list(config.caps)[:n_lv]
+                c += [c[-1]] * (n_lv - len(c))
+            else:
+                c, cur = [], denu_cap
+                for fans in sbenu_level_fanouts(plan):
+                    if fans:
+                        cur = min(cur * 2 * avg_deg, 1 << 22)
+                        cur = 1 << (cur - 1).bit_length()
+                    c.append(cur)
+            self._offsets.append((len(caps), len(caps) + len(c)))
+            caps.extend(c)
+        self._caps0 = tuple(caps)
+        # per-peer request budget: ~2x the worst per-owner distinct-id load
+        # of a frontier level, bounded so the [S, R, D] exchange buffers
+        # stay modest — a heavy level that still drops escalates (2x) and
+        # the chunk retries, which is exact
+        self.req_cap = self._req_cap0 if self._req_cap0 is not None else \
+            max(64, min(2 * max(self._caps0) // self.S, 8192))
+        self._collect = config.collect_matches or \
+            self._collect_mode == "matches"
+        self._intersect = config.intersect_impl
+        self._plus: List[Tuple[int, ...]] = []
+        self._minus: List[Tuple[int, ...]] = []
+        self._count_plus = 0
+        self._count_minus = 0
+        self._per_shard = np.zeros(self.S, np.int64)
+        self._level_acc: Optional[np.ndarray] = None
+        self._cold = 0
+
+    def _n_starts(self) -> int:
+        return self._starts.shape[0]
+
+    def start_batches(self, config: ExecutorConfig):
+        n, B = self._starts.shape[0], self._B
+        for s0 in range(0, n, B):
+            chunk = self._starts[s0:s0 + B]
+            ids = np.full(B, self.sentinel, np.int32)
+            ids[:chunk.shape[0]] = chunk
+            valid = np.zeros(B, bool)
+            valid[:chunk.shape[0]] = True
+            yield ids, valid
+
+    def initial_caps(self, config: ExecutorConfig) -> Tuple[int, ...]:
+        return self._caps0
+
+    def escalate_requests(self) -> None:
+        self.req_cap *= 2
+
+    def _runner(self, caps: Tuple[int, ...]) -> Callable:
+        key = (self._cached_plan_ids, caps, self.req_cap, self._widths,
+               self._collect, self._intersect)
+        if key not in self._runners:
+            from .engine_sbenu_dist import build_sbenu_dist_step
+            caps_list = [tuple(caps[lo:hi]) for lo, hi in self._offsets]
+            self._runners[key] = build_sbenu_dist_step(
+                self.plans, self.sentinel, self.spec, self.group, caps_list,
+                self.req_cap, rebalance=self._rebalance,
+                collect_matches=self._collect,
+                intersect_impl=self._intersect,
+                compaction=self._compaction)
+        return self._runners[key]
+
+    def run_chunk(self, ids, valid, universe_chunk, caps) -> ChunkResult:
+        w = ids.shape[0] // self.S
+        mine = slice(self.rank * w, (self.rank + 1) * w)
+        out = self._runner(tuple(caps))(
+            *self._block_args, torch.from_numpy(ids[mine]).to(self.device),
+            torch.from_numpy(valid[mine]).to(self.device))
+        cp, cm, ov, cold, drops, levels = out[:6]
+        # one gather, one device->host read: [S, 5 + levels] on every rank
+        table = gather_to_all(self.group, torch.stack(
+            [cp, cm, ov, cold, drops, *levels])).cpu().numpy()
+        ov, dr = int(table[:, 2].sum()), int(table[:, 4].sum())
+        if ov or dr:
+            # discard the whole chunk on every rank; the driver re-splits
+            # (granularity S) or escalates caps / request budgets
+            return ChunkResult(count=0, overflow=ov, drops=dr)
+        cps, cms = table[:, 0], table[:, 1]
+        self._per_shard += cps + cms
+        self._cold += int(table[:, 3].sum())
+        lv = table[:, 5:].T
+        self._level_acc = lv if self._level_acc is None \
+            else self._level_acc + lv
+        if self._collect:
+            m, mo, mv = out[6:]
+            # the match rows of every rank, in rank order, on every rank
+            rows = gather_to_all(self.group, torch.cat(
+                [m, mo[:, None], mv[:, None].to(m.dtype)], dim=1))
+            rows = rows.reshape(-1, rows.shape[-1]).cpu().numpy()
+            rows = rows[rows[:, -1] != 0]
+            for row in rows:
+                (self._plus if row[-2] > 0 else self._minus).append(
+                    tuple(int(x) for x in row[:-2]))
+        self._count_plus += int(cps.sum())
+        self._count_minus += int(cms.sum())
+        return ChunkResult(count=int(cps.sum() + cms.sum()))
+
+    def finalize(self, stats: ExecStats) -> None:
+        from .sbenu import SBenuCounters
+        ctr = SBenuCounters(matches_plus=self._count_plus,
+                            matches_minus=self._count_minus)
+        stats.extras.update(
+            delta_plus=set(self._plus), delta_minus=set(self._minus),
+            counters=ctr, per_shard_counts=self._per_shard,
+            per_shard_level_sizes=(
+                self._level_acc if self._level_acc is not None
+                else np.zeros((0, self.S), np.int64)),
+            cold_rows_fetched=self._cold, req_cap=self.req_cap,
+            snapshot_device_bytes=sum(int(b.nbytes)
+                                      for b in self._block_args),
+            rebuilds=self.dstore.rebuilds)
+
+
 BACKENDS = {
+    "ref": RefBackend,
     "torch": TorchBackend,
     "torch-gpu": TorchGpuBackend,
+    "dist": DistBackend,
     "oocache": OocBackend,
     "sbenu": SBenuBackend,
     "sbenu-torch": SBenuTorchBackend,
+    "sbenu-dist": SBenuDistBackend,
 }
 
 

@@ -496,16 +496,18 @@ def run_timestep(pattern: Pattern, plans: Sequence[Plan],
     (core/executor.py). ``engine`` picks the backend: ``"ref"`` (alias
     ``"sbenu"``) interprets every task in Python; ``"sbenu-torch"`` runs
     the vectorized delta-frontier engine over the six-block device
-    snapshot (``device=`` among ``backend_kwargs``; the card by default).
-    Either way the shared driver chunks the touched-vertex start set and
-    splits overloaded chunks (θ delta-slicing for the interpreter,
-    adaptive re-chunking for the vectorized engine).
+    snapshot (``device=`` among ``backend_kwargs``; the card by default);
+    ``"sbenu-dist"`` runs it in every rank of the initialised process
+    group over the rank-sharded snapshot. Either way the shared driver
+    chunks the touched-vertex start set and splits overloaded chunks (θ
+    delta-slicing for the interpreter, adaptive re-chunking for the
+    vectorized engines).
 
     Passing a prepared ``backend`` reuses it (the vectorized backend then
     keeps its device snapshot mirror and runners across the stream).
     """
-    from .executor import (ExecutorConfig, SBenuBackend, SBenuTorchBackend,
-                           drive)
+    from .executor import (ExecutorConfig, SBenuBackend, SBenuDistBackend,
+                           SBenuTorchBackend, drive)
     store.begin_step(batch)
     if backend is None:
         if engine in ("ref", "sbenu"):
@@ -514,6 +516,8 @@ def run_timestep(pattern: Pattern, plans: Sequence[Plan],
         elif engine == "sbenu-torch":
             backend = SBenuTorchBackend(collect=collect,
                                         **backend_kwargs)
+        elif engine == "sbenu-dist":
+            backend = SBenuDistBackend(collect=collect, **backend_kwargs)
         else:
             raise ValueError(f"unknown S-BENU engine {engine!r}")
     st = drive(backend, list(plans), store,

@@ -619,6 +619,151 @@ class DeviceSnapshotStore:
             {int(v): merged[i] for i, v in enumerate(tids)})
 
 
+@dataclass(frozen=True)
+class SnapshotShardSpec:
+    """Static layout of a rank-sharded six-block snapshot.
+
+    Duck-compatible with the ``distributed/rowstore.py`` fetch builder
+    (``n`` / ``n_shards`` / ``rows_per_shard`` / ``hot``): every block is
+    block-partitioned by row over the ranks (owner of row v =
+    ``v // rows_per_shard``), widths vary per block and are read from the
+    tensors at call time. The ``hot`` highest ids (``>= n - hot``) are
+    also replicated on every rank and served locally. Streaming graphs are
+    **not** degree-relabeled at load, so the replicated set is an id
+    range, a hub set only if the stream's numbering makes it one.
+    """
+
+    n: int                 # real vertices; sentinel value
+    n_shards: int
+    rows_per_shard: int    # ceil((n+1) / n_shards)
+    hot: int = 0
+
+
+class ShardedDeviceSnapshotStore(DeviceSnapshotStore):
+    """Rank-sharded resident dual-snapshot store (the distributed
+    streaming substrate, core/engine_sbenu_dist.py).
+
+    Same per-step contract as the device-mode base class — resident
+    ``prev`` blocks advanced incrementally, ``cur`` derived from
+    ``prev`` + delta for the touched rows only, promotion by buffer
+    adoption at ``end_step`` — but this rank of ``group`` holds only its
+    ``rows_per_shard``-row block of each block (rows past ``n`` are
+    all-sentinel) plus the ``[hot+1, W]`` replica of the top ids (the
+    ``+1`` is the sentinel row), so the dual snapshot's device footprint
+    is split S ways. The per-step derive runs on each rank for the
+    touched ids it holds, in its block and in its replica.
+
+    :meth:`step_sharded` also builds the per-direction **joint delta
+    block** (values ++ signs along the width, so one request/response
+    exchange serves a whole flagged delta row).
+    """
+
+    def __init__(self, store: SnapshotStore, group, lane: int = 8,
+                 d_min: int = 0, delta_d_min: int = 0, hot: int = 0,
+                 device=None):
+        import torch.distributed as dist
+        super().__init__(store, lane=lane, d_min=d_min,
+                         delta_d_min=delta_d_min, storage="device",
+                         device=device)
+        self.group = group
+        self.S = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.rows_per_shard = -(-(store.n + 1) // self.S)
+        self.hot = min(int(hot), store.n)
+        self.params = (lane, d_min, delta_d_min, "sharded", self.S,
+                       self.hot, self.device)
+        # [lo, lo + rps) is this rank's block; [hot_lo, n] its replica
+        self._ranges = ((self.rank * self.rows_per_shard,
+                         self.rows_per_shard),
+                        (self.n - self.hot, self.hot + 1))
+
+    @classmethod
+    def for_store(cls, store: SnapshotStore, group, lane: int = 8,
+                  d_min: int = 0, delta_d_min: int = 0, hot: int = 0,
+                  device=None) -> "ShardedDeviceSnapshotStore":
+        """Reuse an existing sharded mirror with the same layout + group."""
+        from ..core.engine_torch import resolve_device
+        import torch.distributed as dist
+        key = (lane, d_min, delta_d_min, "sharded",
+               dist.get_world_size(group), min(int(hot), store.n),
+               resolve_device(device))
+        for m in store._mirrors:
+            if isinstance(m, cls) and m.params == key and m.group is group:
+                return m
+        return cls(store, group, lane=lane, d_min=d_min,
+                   delta_d_min=delta_d_min, hot=hot, device=device)
+
+    def _rebuild_prev(self) -> None:
+        """Host build of this rank's resident prev rows, block and
+        replica (stream start or width overflow); accounts for this
+        step's inserts so cur fits."""
+        self.rebuilds += 1
+        n = self.n
+        self._prev = {}
+        for di, sets, delta in (("out", self.host.prev.out,
+                                 self.host.delta_out),
+                                ("in", self.host.prev.inn,
+                                 self.host.delta_in)):
+            need = max((len(sets[v])
+                        + sum(1 for op in ops.values() if op == "+")
+                        for v, ops in delta.items()), default=0)
+            d = self._round(max(max((len(s) for s in sets), default=0),
+                                need, self.d_min))
+            parts = []
+            for lo, count in self._ranges:
+                rows = np.full((count, d), n, np.int32)
+                for v in range(lo, min(lo + count, n)):
+                    a = sorted(sets[v])
+                    rows[v - lo, :len(a)] = a
+                parts.append(torch.from_numpy(rows).to(self.device))
+            self._prev[di] = tuple(parts)
+            self._d[di] = d
+
+    def step_sharded(self) -> Tuple[Dict[str, torch.Tensor],
+                                    Dict[str, torch.Tensor],
+                                    SnapshotShardSpec]:
+        """``(blocks, hot_blocks, spec)`` of this rank for the begun step.
+
+        ``blocks``: the rank's ``[rps, W]`` rows of ``prev_/cur_{out,in}``
+        and ``delta_joint_{out,in}``; ``hot_blocks``: the replicated
+        ``[hot+1, W]`` rows of the same six blocks.
+        """
+        st = self.host
+        self._ensure_prev_fits()
+        n, dev = self.n, self.device
+        blocks: Dict[str, torch.Tensor] = {}
+        hot_blocks: Dict[str, torch.Tensor] = {}
+        for di, delta in (("out", st.delta_out), ("in", st.delta_in)):
+            vals, signs, _ = self._delta_buffers(delta)
+            touched = np.asarray(sorted(delta), np.int64)
+            cur = []
+            for (lo, count), prev, out in zip(self._ranges, self._prev[di],
+                                              (blocks, hot_blocks)):
+                # this range's delta rows (rows past n: holes, flags 0)
+                hi = min(lo + count, n + 1)
+                tv = np.full((count, vals.shape[1]), n, np.int32)
+                ts = np.zeros((count, vals.shape[1]), np.int32)
+                tv[:hi - lo], ts[:hi - lo] = vals[lo:hi], signs[lo:hi]
+                tv, ts = torch.from_numpy(tv).to(dev), \
+                    torch.from_numpy(ts).to(dev)
+                own = touched[(touched >= lo) & (touched < hi)] - lo
+                c = prev.clone()
+                if own.size:
+                    tids = torch.from_numpy(own).to(dev)
+                    c.index_copy_(0, tids, derive_rows(prev, tids, tv, ts,
+                                                       n))
+                cur.append(c)
+                out[f"prev_{di}"] = prev
+                out[f"cur_{di}"] = c
+                out[f"delta_joint_{di}"] = torch.cat([tv, ts], dim=1)
+            self._cur[di] = tuple(cur)
+        self._pending_t = st.t
+        spec = SnapshotShardSpec(n=n, n_shards=self.S,
+                                 rows_per_shard=self.rows_per_shard,
+                                 hot=self.hot)
+        return blocks, hot_blocks, spec
+
+
 class SnapshotRowView:
     """Read-only ``HostRowStore``-API view over one direction of a
     host-mode :class:`DeviceSnapshotStore`, plus per-step row patches.

@@ -520,3 +520,98 @@ def test_prefetch_race_serves_staged_rows_exactly(card):
     np.testing.assert_array_equal(got.cpu().numpy(), oracle[:n])
     assert cache.stats.cold_rows == 0
     assert cache.stats.prefetch_used == n
+
+
+@pytest.fixture
+def nccl_world(card, tmp_path):
+    """An NCCL process group of one rank (one card) and a gloo group of
+    the same rank for CPU tensors, destroyed after the test."""
+    import torch.distributed as dist
+    torch.cuda.set_device(card)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        yield dist.group.WORLD, dist.new_group(backend="gloo")
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_summary(st):
+    x = st.extras
+    return (st.count, x["per_shard_counts"].tolist(),
+            x["per_shard_level_sizes"].tolist(), x["cold_rows_fetched"],
+            st.drops_seen, st.chunks_run, st.chunks_split, st.chunks_retried)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pname", ["triangle", "chordal-square", "house"])
+@pytest.mark.parametrize("hot,rebalance", [(16, True), (0, False)])
+def test_dist_over_nccl_equals_gloo_on_the_cpu(nccl_world, card, pname, hot,
+                                               rebalance):
+    """dist on the card over NCCL (the row exchange, the rebalancer and
+    the intersect kernel) == dist on the CPU over gloo: counts, per-shard
+    counts and level sizes, cold rows, drops and chunk accounting."""
+    from repro_torch.core.executor import make_executor
+    from repro_torch.core.pattern import get_pattern
+    from repro_torch.core.plangen import generate_best_plan
+    from repro_torch.graph.generate import powerlaw
+    from repro_torch.kernels import sorted_intersect as si
+    nccl, gloo = nccl_world
+    g = powerlaw(400, 6, seed=3)
+    plan = generate_best_plan(get_pattern(pname), g.stats())
+    kw = dict(hot=hot, rebalance=rebalance)
+    want = make_executor("dist", group=gloo, device="cpu", **kw).run(
+        plan, g, batch=32)
+    si.launches = 0
+    st = make_executor("dist", group=nccl, device=card, **kw).run(
+        plan, g, batch=32)
+    assert si.launches > 0
+    assert _dist_summary(st) == _dist_summary(want)
+    if pname == "house":
+        assert st.drops_seen > 0          # the budget escalated on the card
+    with pytest.raises(ValueError, match="cannot carry cpu"):
+        make_executor("dist", group=nccl, device="cpu").run(plan, g, batch=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pname", ["q1'", "q2'"])
+def test_sbenu_dist_over_nccl_equals_gloo_on_the_cpu(nccl_world, card,
+                                                     pname):
+    """sbenu-dist on the card over NCCL == sbenu-dist on the CPU over gloo:
+    ΔR⁺/ΔR⁻ sets, per-shard counts and level sizes and cold rows, step by
+    step, one sharded snapshot build each."""
+    from repro_torch.core.estimate import GraphStats
+    from repro_torch.core.executor import (ExecutorConfig, SBenuDistBackend,
+                                           drive)
+    from repro_torch.core.pattern import get_pattern
+    from repro_torch.core.sbenu import generate_best_sbenu_plans
+    from repro_torch.graph.dynamic import SnapshotStore, stream_width_floors
+    from repro_torch.graph.generate import edge_stream
+    from repro_torch.kernels import sorted_intersect as si
+    nccl, gloo = nccl_world
+    g0, batches = edge_stream(n=300, m_init=1500, steps=3, batch=80,
+                              seed=4, delete_frac=0.3)
+    plans = generate_best_sbenu_plans(get_pattern(pname),
+                                      GraphStats(300, 1500, delta_edges=80))
+    d, dd = stream_width_floors(g0, batches)
+    runs = {"cpu": (gloo, "cpu"), "cuda": (nccl, card)}
+    stores = {k: SnapshotStore(g0) for k in runs}
+    backends = {k: SBenuDistBackend(d_min=d, delta_d_min=dd, hot=16,
+                                    rebalance=True, group=grp, device=dev)
+                for k, (grp, dev) in runs.items()}
+    for batch in batches:
+        out = {}
+        for k, store in stores.items():
+            store.begin_step(batch)
+            si.launches = 0
+            st = drive(backends[k], plans, store,
+                       ExecutorConfig(batch=16, collect_matches=True))
+            out[k] = (st, si.launches)
+            store.end_step()
+        (c, _), (g, launches) = out["cpu"], out["cuda"]
+        assert launches > 0
+        for key in ("delta_plus", "delta_minus", "cold_rows_fetched"):
+            assert g.extras[key] == c.extras[key], key
+        for key in ("per_shard_counts", "per_shard_level_sizes"):
+            np.testing.assert_array_equal(g.extras[key], c.extras[key])
+    assert all(be.dstore.rebuilds == 1 for be in backends.values())

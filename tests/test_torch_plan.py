@@ -116,6 +116,11 @@ def test_sources_import_neither_jax_nor_repro():
     assert len(paths) > 10
     for sub in ("layers", "models", "configs"):
         assert any(os.sep + sub + os.sep in p for p in paths), sub
+    for mod in ("core/ref_engine.py", "core/baseline_join.py",
+                "core/engine_dist.py", "core/engine_sbenu_dist.py",
+                "distributed/rowstore.py"):
+        assert any(p.endswith(os.sep + mod.replace("/", os.sep))
+                   for p in paths), mod
     for p in paths:
         with open(p) as fh:
             hit = FORBIDDEN.search(fh.read())
