@@ -59,7 +59,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    8b, after phase 7: ``sbenu-dist`` on phase 7's full stream (the same
    G_0, batches, widths and plans) equals phase 7's q1' independent
    count and q2' ``sbenu-torch`` counts on every step, with one sharded
-   snapshot build.
+   snapshot build;
+9. LM training at full width, right after phase 5, under
+   ``torch.use_deterministic_algorithms(True)`` for torch's own ops
+   (``CUBLAS_WORKSPACE_CONFIG`` is set at start-up for it): qwen2-0.5b in
+   bf16 with remat, ``LMStream`` 4 x 4096 tokens a step, AdamW on the
+   card. One step from the seeded weights with the kernels, one with the
+   plain versions (``impl="ref"``) and one with the plain versions on the
+   same weights in f32: the kernels' loss and grad norm must be within
+   ``LM_TOL_FLOORS`` x the plain bf16 step's distance from the f32 one in
+   the same quantity, each parameter's gradient (the L2 distance of that
+   tensor alone) within ``LM_TOL_FLOORS`` x the plain bf16 step's
+   distance from the f32 one in that tensor, and the updated parameters
+   of each group (attention, MLP, norms, embedding) within
+   ``LM_TOL_FLOORS`` x the group's distance from the f32 step's rounded
+   to bf16; the kernel step
+   launches exactly 48 flash forwards (24 + 24 recomputed by remat), 24
+   flash backwards, 97 rmsnorm forwards (49 + 48) and 49 rmsnorm
+   backwards, and the plain step none. Then ``run_training`` for
+   ``TRAIN_STEPS`` steps with a checkpoint every ``TRAIN_CKPT_EVERY``
+   (checkpoints under ``build/``, removed after), and a run that fails at
+   step ``TRAIN_CKPT_EVERY`` and resumes from its checkpoint: the resumed
+   steps' losses, the final parameters and AdamW moments must equal the
+   uninterrupted run's bit for bit, every loss finite, the launches
+   ``TRAIN_STEPS`` x a step's. It prints tokens/s of timed steps after the
+   first, the peak device memory and a profiled step's busy share.
 
 Phase 1 also counts the HGMMA (``wgmma``) instructions in the flash
 library's SASS (``cuobjdump``) and fails if there are none. Phase 2 times
@@ -79,7 +103,15 @@ layer's views and at d = 128, each beside its bound. rmsnorm and
 (``rmsnorm_timing``): device-only by a replayed CUDA graph, eager, and
 host µs per call, medians of ``RMS_ROUNDS`` alternating rounds; the
 kernels line takes the device-only time. Phase 5 also requires every
-rmsnorm launch on the kernel's register body.
+rmsnorm launch on the kernel's register body, and no backward launch.
+Phase 2 also holds the two backward kernels (``flash_attention_bwd``,
+``rmsnorm_bwd``: the port's own, the Pallas kernels have none) against
+their plain backward formulas at the training shapes (flash: q [4, 14,
+4096, 64] as the layer's views in bf16 and f32, non-causal, rows that see
+no key, d = 128; rmsnorm: [16384, 896], an odd width, a wide row; the
+tolerances in ``phase_lm_bwd_kernels``), checks the flash backward twice
+for equal bits, and times both beside their bound and the backward of
+``F.scaled_dot_product_attention`` / ``F.rms_norm``.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It exits non-zero with no
@@ -92,6 +124,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -113,6 +146,10 @@ FULL_N, FULL_BATCH, FULL_CAPS = 1_000_000, 4096, (65536, 16384)
 # LM path: prefill 4 x 4096 tokens; the serve loop as serve.py's defaults
 LM_ARCH, LM_BATCH, LM_SEQ = "qwen2-0.5b", 4, 4096
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_CACHE = 4, 16, 32, 128
+# phase 9: qwen2-0.5b training at the prefill shape (LMStream 4 x 4096),
+# TRAIN_STEPS steps with a checkpoint every TRAIN_CKPT_EVERY
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 4096, 1e-3
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 6, 3
 # kernels vs plain versions end to end in bf16: both round every
 # activation to 8 significant bits, in other orders, through 24 layers.
 # The yardstick is measured in the run: ``floor`` = max |plain bf16 - the
@@ -748,6 +785,176 @@ def phase_lm_kernels(dev, bandwidth: float, peak: float) -> dict:
     return out
 
 
+def phase_lm_bwd_kernels(dev, bandwidth: float, peak: float) -> dict:
+    """The two backward kernels against their plain backward versions
+    (explicit f32 formulas, ``ref.flash_attention_backward`` and
+    ``ref.rmsnorm_backward``) on the same inputs, then timed at the
+    training shapes beside the plain version, the bound and one PyTorch
+    call's backward (timed only here).
+
+    Tolerances, against the plain result in f32 on the same (bf16 or f32)
+    inputs: flash f32 ``max|err| <= 1e-4 * max|want|`` for each of dq,
+    dk, dv (sums in another order), bf16 ``<= 1e-2 * max|want|`` (one
+    rounding of each output to 8 significant bits, ~4e-3 of a value, plus
+    f32 sums in another order), lse ``<= 1e-4`` absolute; rmsnorm f32
+    ``<= 1e-4 * max|want|``, bf16 within one bf16 ulp of the f32 value plus
+    ``1e-6 * max|want|`` (dx cancels in ``g*gamma - x*coef``, where f32
+    rounding is absolute, not relative)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    out = {}
+
+    def rand(shape, dtype, strided=False):
+        if strided:             # [B, H, T, d] views of [B, T, H, d]
+            b, h, t, d = shape
+            return torch.randn((b, t, h, d), generator=gen, device=dev
+                               ).to(dtype).transpose(1, 2)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def flash_inputs(b, hq, hkv, tq, tk, d, causal, dtype, strided):
+        q = rand((b, hq, tq, d), dtype, strided)
+        k, v = (rand((b, hkv, tk, d), dtype, strided) for _ in range(2))
+        o, lse = fa.flash_attention_lse_cuda(q, k, v, causal)
+        return q, k, v, o, lse, rand((b, hq, tq, d), dtype, strided)
+
+    # -- flash_attention_bwd: the training shape as the layer passes it,
+    # f32 there too, non-causal, rows that see no key, d = 128 ragged
+    cases = [  # (B, Hq, Hkv, Tq, Tk, d, causal, strided)
+        (LM_BATCH, 14, 2, LM_SEQ, LM_SEQ, 64, True, True),
+        (2, 14, 2, 1024, 1024, 64, False, False),
+        (1, 14, 2, 256, 128, 64, True, False),
+        (1, 16, 2, 1000, 1000, 128, True, True),
+    ]
+    worst = 0.0
+    for b, hq, hkv, tq, tk, d, causal, strided in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, o, lse, do = flash_inputs(b, hq, hkv, tq, tk, d,
+                                               causal, dtype, strided)
+            got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+            _, want_lse = ref.flash_attention(q, k, v, causal,
+                                              return_lse=True)
+            want = ref.flash_attention_backward(
+                q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                causal)
+            torch.cuda.synchronize()
+            rel = 1e-4 if dtype == torch.float32 else 1e-2
+            errs = [float((g.float() - w).abs().max()) for g, w in
+                    zip(got, want)]
+            scales = [float(w.abs().max()) for w in want]
+            lse_err = float((lse - want_lse).abs().max())
+            ok = lse_err <= 1e-4 and all(e <= rel * sc for e, sc in
+                                         zip(errs, scales))
+            if dtype == torch.bfloat16 and (b, tq) == (LM_BATCH, LM_SEQ):
+                worst = max(errs)
+            log(f"  flash_attention_bwd B={b} Hq={hq} Hkv={hkv} Tq={tq} "
+                f"Tk={tk} d={d} causal={causal} strided={strided} "
+                f"{str(dtype)[6:]}: max_abs_err dq/dk/dv "
+                f"{[f'{e:.3g}' for e in errs]} of max "
+                f"{[f'{sc:.3g}' for sc in scales]} (tolerance {rel} x max), "
+                f"lse {lse_err:.3g}: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError("flash_attention_bwd disagrees with its "
+                                   "plain version at "
+                                   f"{(b, hq, hkv, tq, tk, d, causal)}")
+            del q, k, v, o, lse, do, got, want
+    b, hq, hkv, t, d, causal = LM_BATCH, 14, 2, LM_SEQ, 64, True
+    q, k, v, o, lse, do = flash_inputs(b, hq, hkv, t, t, d, causal,
+                                       torch.bfloat16, True)
+    a1 = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    a2 = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    if not all(torch.equal(x, y) for x, y in zip(a1, a2)):
+        raise RuntimeError("flash_attention_bwd is not deterministic")
+    del a1, a2
+    visible = t * (t + 1) // 2
+    flops = 5 * 2 * b * hq * d * visible            # S, dP, dV, dK, dQ
+    nbytes = (2 * 3 * b * hq * t * d + 2 * 2 * b * hkv * t * d) * 2 \
+        + b * hq * t * 4
+    bound_ms = max(flops / peak, nbytes / bandwidth) * 1e3
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                          enable_gqa=True)
+    out["flash_attention_bwd"] = dict(
+        ms=cuda_time_ms(lambda: fa.flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, causal), 5),
+        plain_ms=cuda_time_ms(lambda: ref.flash_attention_backward(
+            q, k, v, o, lse, do, causal), 2),
+        library_ms=cuda_time_ms(lambda: torch.autograd.grad(
+            sdpa, (qs, ks, vs), do, retain_graph=True), 10),
+        bound_ms=bound_ms,
+        bound_by="operations" if flops / peak > nbytes / bandwidth
+        else "bytes", max_abs_err=worst,
+        shape=f"q[{b},{hq},{t},{d}] kv[{b},{hkv},{t},{d}] bf16 causal, "
+              "[B, T, H, d] views")
+    del q, k, v, o, lse, do, qs, ks, vs, sdpa
+
+    # -- rmsnorm_bwd: the training rows, an odd width, a wide row
+    worst = 0.0
+    for rows, d in ((LM_BATCH * LM_SEQ, 896), (1000, 1001), (3, 8192)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = rand((rows, d), dtype) * 3
+            g, gam = rand((rows, d), dtype), rand((d,), dtype)
+            got = rn.rmsnorm_bwd_cuda(x, gam, g, 1e-6)
+            want = ref.rmsnorm_backward(x.float(), gam.float(), g.float(),
+                                        1e-6)
+            torch.cuda.synchronize()
+            errs, oks = [], []
+            for gt, w in zip(got, want):
+                err = (gt.float() - w).abs()
+                scale = float(w.abs().max())
+                if dtype == torch.float32:
+                    oks.append(bool((err <= 1e-4 * scale).all()))
+                else:
+                    oks.append(bool((err <= bf16_ulp(w) + 1e-6 * scale
+                                     ).all()))
+                errs.append(float(err.max()))
+            if dtype == torch.bfloat16 and rows == LM_BATCH * LM_SEQ:
+                worst = max(errs)
+            tol = "1e-4 x max" if dtype == torch.float32 else \
+                "one bf16 ulp + 1e-6 x max"
+            log(f"  rmsnorm_bwd [{rows}, {d}] {str(dtype)[6:]}: max_abs_err "
+                f"dx {errs[0]:.3g}, dgamma {errs[1]:.3g} (tolerance {tol}): "
+                f"{'ok' if all(oks) else 'FAIL'}")
+            if not all(oks):
+                raise RuntimeError("rmsnorm_bwd disagrees with its plain "
+                                   f"version at [{rows}, {d}] {dtype}")
+    rows, d = LM_BATCH * LM_SEQ, 896
+    sets = [(rand((rows, d), torch.bfloat16), rand((d,), torch.bfloat16),
+             rand((rows, d), torch.bfloat16)) for _ in range(3)]
+    lib_sets = []
+    for x, gam, g in sets:
+        xs, gs = x.detach().requires_grad_(), gam.detach().requires_grad_()
+        lib_sets.append((F.rms_norm(xs, (d,), gs, 1e-6), (xs, gs), g))
+    out["rmsnorm_bwd"] = dict(
+        ms=cuda_time_ms(rotating(lambda x, gam, g: rn.rmsnorm_bwd_cuda(
+            x, gam, g, 1e-6), sets), 40),
+        plain_ms=cuda_time_ms(rotating(lambda x, gam, g:
+                                       ref.rmsnorm_backward(x, gam, g, 1e-6),
+                                       sets), 8),
+        library_ms=cuda_time_ms(rotating(
+            lambda y, ins, g: torch.autograd.grad(y, ins, g,
+                                                  retain_graph=True),
+            lib_sets), 40),
+        bound_ms=(3 * rows * d + 2 * d) * 2 / bandwidth * 1e3,
+        bound_by="bytes", max_abs_err=worst,
+        shape=f"[{rows}, {d}] bf16")
+    del sets, lib_sets
+    for name in ("flash_attention_bwd", "rmsnorm_bwd"):
+        r = out[name]
+        log(f"  {name} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library (backward) "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% of "
+            "bound")
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: the LM serving path at full width
 # ---------------------------------------------------------------------------
@@ -756,13 +963,15 @@ def phase_lm_kernels(dev, bandwidth: float, peak: float) -> dict:
 def lm_counts():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
-    return {"flash_attention": fa.launches, "rmsnorm": rn.launches}
+    return {"flash_attention": fa.launches,
+            "flash_attention_bwd": fa.bwd_launches,
+            "rmsnorm": rn.launches, "rmsnorm_bwd": rn.bwd_launches}
 
 
 def zero_lm_counts() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
-    fa.launches = rn.launches = 0
+    fa.launches = rn.launches = fa.bwd_launches = rn.bwd_launches = 0
     for body in rn.body_launches:
         rn.body_launches[body] = 0
 
@@ -846,7 +1055,10 @@ def phase_lm(dev) -> dict:
     gen.manual_seed(SEED)
     tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=gen,
                            device=dev)
-    launches = {"flash_attention": 0, "rmsnorm": 0}
+    # the serving path pays for no backward and no lse
+    launches = {"flash_attention": 0, "rmsnorm": 0,
+                "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+    none = dict(launches)
 
     runs = {}
     for tag, impl in (("kernels", "auto"), ("plain", "ref")):
@@ -864,9 +1076,9 @@ def phase_lm(dev) -> dict:
             f"{LM_BATCH * LM_SEQ / dt:.0f} tok/s, peak "
             f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
         got = expect_counts(f"prefill ({tag})",
-                            {"flash_attention": L, "rmsnorm": 2 * L + 1}
-                            if tag == "kernels" else
-                            {"flash_attention": 0, "rmsnorm": 0})
+                            {**none, "flash_attention": L,
+                             "rmsnorm": 2 * L + 1}
+                            if tag == "kernels" else none)
         if tag == "kernels":
             for k, c in got.items():
                 launches[k] += c
@@ -910,8 +1122,7 @@ def phase_lm(dev) -> dict:
         f" tok/s, peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
         f"GiB; sample {out['tokens'][0][:16].tolist()}")
     got = expect_counts("serve loop (kernels)",
-                        {"flash_attention": 0,
-                         "rmsnorm": (2 * L + 1) * steps})
+                        {**none, "rmsnorm": (2 * L + 1) * steps})
     for k, c in got.items():
         launches[k] += c
     zero_lm_counts()
@@ -919,7 +1130,7 @@ def phase_lm(dev) -> dict:
                        norm_impl="ref", forced=out["tokens"])
     log(f"  serve loop teacher-forced (plain): {plain['seconds']:.4f} s, "
         f"{SERVE_BATCH * steps / plain['seconds']:.0f} tok/s")
-    expect_counts("serve loop (plain)", {"flash_attention": 0, "rmsnorm": 0})
+    expect_counts("serve loop (plain)", none)
     compare_logits(f"serve loop, all {steps} steps' logits, kernels vs plain",
                    out["logits"], plain["logits"], tol)
     pre = prefill_step(model, prompt)
@@ -930,6 +1141,256 @@ def phase_lm(dev) -> dict:
     log(f"  phase 5: {time.perf_counter() - t_phase:.1f} s")
     del model
     torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: LM training at full width
+# ---------------------------------------------------------------------------
+
+
+def train_step(model, batch, impl: str, opt_cfg):
+    """One training step through the port's entry points, from a fresh
+    AdamW state: ``loss_fn`` (``impl`` for both kernels), backward,
+    ``adamw_update`` (the model updated in place). Returns the loss, the
+    grad norm and the gradients by name."""
+    import torch
+    from repro_torch.models.transformer import decay_mask, loss_fn
+    from repro_torch.train.optimizer import adamw_init, adamw_update
+    params = dict(model.named_parameters())
+    state = adamw_init(params)
+    loss, _ = loss_fn(model, batch, attn_impl=impl, norm_impl=impl)
+    loss.backward()
+    grads = {n: p.grad for n, p in params.items()}
+    model.zero_grad(set_to_none=True)
+    _, _, metrics = adamw_update(opt_cfg, grads, state, params,
+                                 decay_mask(params))
+    torch.cuda.synchronize()
+    return loss.item(), metrics["grad_norm"].item(), grads
+
+
+def leaf_dists(a: dict, b: dict) -> dict:
+    """The L2 distance of each pair of same-named tensors, in f64."""
+    import torch
+    return {k: float(torch.linalg.vector_norm(a[k].double() - b[k].double()))
+            for k in a}
+
+
+# the parameters of phase 9's model by group (a name's first match)
+LEAF_GROUPS = (("attention", ".attn."), ("mlp", ".ffn."), ("norms", "norm"),
+               ("embedding", "embed"))
+
+
+def check_agreement(what: str, diff: dict, floor: dict,
+                    each_tensor: bool) -> None:
+    """Kernels vs plain by parameter: ``diff`` and ``floor`` hold each
+    tensor's L2 distance kernels-vs-plain and plain-bf16-vs-f32. With
+    ``each_tensor`` every tensor must be within LM_TOL_FLOORS x its own
+    yardstick, else each group's L2 within LM_TOL_FLOORS x the group's.
+    Logs the worst of each group; fails on any over its tolerance."""
+    groups = {g: [n for n in diff if key in n] for g, key in LEAF_GROUPS}
+    if sorted(sum(groups.values(), [])) != sorted(diff):
+        raise RuntimeError(f"parameters outside {LEAF_GROUPS}")
+    bad = []
+    for group, names in groups.items():
+        if each_tensor:
+            items = {n: (diff[n], floor[n]) for n in names}
+        else:
+            items = {f"{len(names)} tensors": (
+                math.sqrt(sum(diff[n] ** 2 for n in names)),
+                math.sqrt(sum(floor[n] ** 2 for n in names)))}
+        ratio = {n: d / f if f else (0.0 if d == 0 else math.inf)
+                 for n, (d, f) in items.items()}
+        n = max(ratio, key=ratio.get)
+        log(f"  kernels vs plain, {what}, {group}, worst of {len(items)}: "
+            f"{n} {items[n][0]:.4g} against {items[n][1]:.4g} (ratio "
+            f"{ratio[n]:.4g}, tolerance {LM_TOL_FLOORS})")
+        bad += [n for n, r in ratio.items() if not r <= LM_TOL_FLOORS]
+    if bad:
+        raise RuntimeError(f"training step, kernels vs plain: {what} of "
+                           f"{bad} over {LM_TOL_FLOORS} x their yardstick")
+
+
+def phase_train(dev) -> dict:
+    """LM training at full width: qwen2-0.5b in bf16 with remat on the
+    ``LMStream`` at ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens a step, AdamW on
+    the card, all under ``torch.use_deterministic_algorithms(True)``.
+    Returns the main path's launches by kernel."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipelines import LMStream
+    from repro_torch.models.transformer import (Transformer, decay_mask,
+                                                init_params, loss_fn)
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.loop import (TrainLoopConfig, run_training,
+                                        to_device)
+    from repro_torch.train.optimizer import AdamWConfig, make_train_step
+    t_phase = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    cfg = get_config(LM_ARCH).model_cfg
+    L = cfg.n_layers
+    if not cfg.remat or cfg.dtype != torch.bfloat16:
+        raise RuntimeError(f"{cfg.name}: expected remat in bf16")
+    per_step = {"flash_attention": 2 * L, "flash_attention_bwd": L,
+                "rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1}
+    none = {k: 0 for k in per_step}
+    stream = LMStream(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                          decay_steps=TRAIN_STEPS)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"  {cfg.name} bf16, remat, LMStream {TRAIN_BATCH} x {TRAIN_SEQ} = "
+        f"{tokens} tokens a step, AdamW (lr {TRAIN_LR}, warm-up 2); "
+        "torch.use_deterministic_algorithms(True)")
+    launches = dict(none)
+
+    # -- agreement: one step with the kernels, with the plain versions and
+    # with the plain versions on the same weights in f32
+    batch = to_device(stream.batch(0), dev)
+    model = init_params(cfg, seed=SEED, device=dev)
+    init = {k: v.detach().to("cpu", copy=True)
+            for k, v in model.state_dict().items()}
+    zero_lm_counts()
+    t0 = time.perf_counter()
+    loss_k, gn_k, g_k = train_step(model, batch, "auto", opt_cfg)
+    log(f"  first step (kernels): {time.perf_counter() - t0:.3f} s, loss "
+        f"{loss_k:.6f}, grad norm {gn_k:.6f}")
+    for k, c in expect_counts("training step (kernels)", per_step).items():
+        launches[k] += c
+    p_k = {k: v.detach().clone() for k, v in model.named_parameters()}
+    model.load_state_dict(init)
+    zero_lm_counts()
+    t0 = time.perf_counter()
+    loss_p, gn_p, g_p = train_step(model, batch, "ref", opt_cfg)
+    log(f"  step (plain versions): {time.perf_counter() - t0:.3f} s, loss "
+        f"{loss_p:.6f}, grad norm {gn_p:.6f}")
+    expect_counts("training step (plain)", none)
+    p_p = {k: v.detach().clone() for k, v in model.named_parameters()}
+    del model
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model32 = Transformer(dataclasses.replace(cfg, dtype=torch.float32),
+                          torch.Generator(device=dev))
+    model32.load_state_dict(init)                       # bf16 -> f32
+    loss_32, gn_32, g_32 = train_step(model32, batch, "ref", opt_cfg)
+    p_32 = {k: v.detach() for k, v in model32.named_parameters()}
+    del model32
+    log(f"  f32 step (plain versions): loss {loss_32:.6f}, grad norm "
+        f"{gn_32:.6f}")
+    # like with like: each quantity against the plain bf16 step's distance
+    # from the f32 one in the same quantity
+    for what, diff, floor in (("loss", abs(loss_k - loss_p),
+                               abs(loss_p - loss_32)),
+                              ("grad norm", abs(gn_k - gn_p),
+                               abs(gn_p - gn_32))):
+        tol = LM_TOL_FLOORS * floor
+        log(f"  kernels vs plain, {what}: {diff:.4g} (tolerance "
+            f"{LM_TOL_FLOORS} x {floor:.4g} = {tol:.4g}): "
+            f"{'ok' if diff <= tol else 'FAIL'}")
+        if not diff <= tol:
+            raise RuntimeError(f"training step, kernels vs plain: {what} "
+                               f"{diff} > {tol}")
+    # gradients tensor by tensor. The updated parameters are bf16 on both
+    # sides, so the f32 step's are rounded to bf16 first; they are held by
+    # group: AdamW's first step is lr * g / (|g| + eps), a sign, and a
+    # component whose gradient is within rounding of 0 may flip, moving by
+    # 2 * lr. A 128-wide bias sees 0 or 1 such flips, no stable
+    # yardstick for it alone
+    check_agreement("gradient", leaf_dists(g_k, g_p),
+                    leaf_dists(g_p, g_32), each_tensor=True)
+    check_agreement("updated parameters", leaf_dists(p_k, p_p),
+                    leaf_dists(p_p, {k: v.to(p_p[k].dtype)
+                                     for k, v in p_32.items()}),
+                    each_tensor=False)
+    del g_k, g_p, g_32, p_k, p_p, p_32
+    torch.cuda.empty_cache()
+    log(f"  agreement: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- restart: TRAIN_STEPS steps with a checkpoint every
+    # TRAIN_CKPT_EVERY, against a run that fails at TRAIN_CKPT_EVERY and
+    # resumes from its checkpoint
+    ck_root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ck_root, ignore_errors=True)
+    init_fn = lambda: init_params(cfg, seed=SEED, device=dev)
+    loop = dict(steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY, log_every=1)
+    zero_lm_counts()
+    t0 = time.perf_counter()
+    h_a = run_training(loss_fn, init_fn, stream.batch, opt_cfg,
+                       TrainLoopConfig(**loop),
+                       ckpt=CheckpointManager(str(ck_root / "a"), keep=1),
+                       device=dev, decay_mask=decay_mask)
+    log(f"  uninterrupted run, {TRAIN_STEPS} steps with checkpoints: "
+        f"{time.perf_counter() - t0:.1f} s")
+    got = expect_counts(f"{TRAIN_STEPS} training steps (kernels)",
+                        {k: TRAIN_STEPS * c for k, c in per_step.items()})
+    for k, c in got.items():
+        launches[k] += c
+    shutil.rmtree(ck_root / "a", ignore_errors=True)
+    if not all(math.isfinite(x) for x in h_a["loss"]) or \
+            len(h_a["loss"]) != TRAIN_STEPS:
+        raise RuntimeError(f"losses {h_a['loss']}")
+    ck_b = CheckpointManager(str(ck_root / "b"), keep=1)
+    try:
+        run_training(loss_fn, init_fn, stream.batch, opt_cfg,
+                     TrainLoopConfig(**loop, fail_at_step=TRAIN_CKPT_EVERY),
+                     ckpt=ck_b, device=dev, decay_mask=decay_mask)
+        raise RuntimeError("the injected failure did not fire")
+    except RuntimeError as e:
+        if "injected failure" not in str(e):
+            raise
+    t0 = time.perf_counter()
+    h_b = run_training(loss_fn, init_fn, stream.batch, opt_cfg,
+                       TrainLoopConfig(**loop), ckpt=ck_b, device=dev,
+                       decay_mask=decay_mask)
+    log(f"  resumed run from step {h_b['step'][0] - 1}: "
+        f"{time.perf_counter() - t0:.1f} s (restore included)")
+    shutil.rmtree(ck_root, ignore_errors=True)
+    s_a, s_b = h_a["final_state"], h_b["final_state"]
+    same = h_b["step"] == h_a["step"][TRAIN_CKPT_EVERY:] and \
+        h_b["loss"] == h_a["loss"][TRAIN_CKPT_EVERY:]
+    same &= all(torch.equal(x, y) for x, y in zip(
+        s_a["params"].state_dict().values(),
+        s_b["params"].state_dict().values()))
+    for f in ("m", "v"):
+        same &= all(torch.equal(getattr(s_a["opt"], f)[k], t)
+                    for k, t in getattr(s_b["opt"], f).items())
+    same &= int(s_a["opt"].step) == int(s_b["opt"].step) == TRAIN_STEPS
+    log(f"  losses, uninterrupted: {h_a['loss']}; resumed steps "
+        f"{h_b['step']}: {h_b['loss']}; parameters, m and v bit-equal: "
+        f"{same}")
+    if not same:
+        raise RuntimeError("the resumed run differs from the uninterrupted "
+                           "one")
+    model = s_a["params"]
+    opt = s_a["opt"]
+    del h_a, h_b, s_a, s_b
+    torch.cuda.empty_cache()
+
+    # -- throughput, peak memory and a profiled step
+    step_fn = make_train_step(loss_fn, opt_cfg, decay=decay_mask(
+        dict(model.named_parameters())))
+    torch.cuda.reset_peak_memory_stats(dev)
+    seconds = []
+    for i in range(3):
+        b = to_device(stream.batch(TRAIN_STEPS + i), dev)
+        t0 = time.perf_counter()
+        model, opt, metrics = step_fn(model, opt, b)
+        loss = metrics["loss_total"].item()
+        seconds.append(time.perf_counter() - t0)
+        if not math.isfinite(loss):
+            raise RuntimeError(f"loss {loss} at a timed step")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    rate = tokens / statistics.mean(seconds[1:])
+    log(f"  training steps: {[round(x, 4) for x in seconds]} s; "
+        f"{rate:.0f} tok/s (steps 2-3); peak {peak:.2f} GiB")
+    b = to_device(stream.batch(TRAIN_STEPS + 3), dev)
+    device_profile("one training step (kernels)",
+                   lambda: step_fn(model, opt, b))
+    torch.use_deterministic_algorithms(False)
+    del model, opt
+    torch.cuda.empty_cache()
+    log(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1447,6 +1908,9 @@ def main() -> int:
         print("chip_smoke.py needs the repository around it "
               "(src/repro_torch not found)", file=sys.stderr)
         return 2
+    # cuBLAS is deterministic only with a fixed workspace (phase 9 runs
+    # under torch.use_deterministic_algorithms); set before its first use
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     if not torch.cuda.is_available():
@@ -1492,6 +1956,7 @@ def main() -> int:
     log("phase 2: kernels vs plain versions on the card")
     kern = phase_kernels(dev, bandwidth)
     kern.update(phase_lm_kernels(dev, bandwidth, peak))
+    kern.update(phase_lm_bwd_kernels(dev, bandwidth, peak))
     log("phase 3: mid-size exactness")
     g_mid, tri_mid, mid_runs = phase_mid(dev)
     log("phase 4: full size (main path)")
@@ -1499,6 +1964,11 @@ def main() -> int:
         launches, g_full, tri_full, full_levels = phase_full(dev)
     log("phase 5: LM serving path at full width (qwen2-0.5b)")
     launches.update(phase_lm(dev))
+    # phase 9 right after phase 5: the card then holds nothing of the
+    # enumeration phases
+    log("phase 9: LM training at full width (qwen2-0.5b)")
+    for k, c in phase_train(dev).items():
+        launches[k] += c
     log("phase 6: out-of-core B-BENU (host row store + device row cache)")
     with gc_paused():
         launches["sorted_intersect"] += phase_ooc(
@@ -1526,7 +1996,13 @@ def main() -> int:
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:68"),
                "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
-                           "src/repro/kernels/rmsnorm.py:25")}
+                           "src/repro/kernels/rmsnorm.py:25"),
+               # the port's own backwards of those two TPU kernels
+               "flash_attention_bwd": (
+                   "src/repro_torch/csrc/flash_attention_bwd.cu",
+                   "src/repro/kernels/flash_attention.py:68"),
+               "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm_bwd.cu",
+                               "src/repro/kernels/rmsnorm.py:25")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": kern[name]["max_abs_err"],

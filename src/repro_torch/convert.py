@@ -18,6 +18,10 @@ weights:
         {k: np.asarray(v) for k, v in jblocks.items()},
         {k: np.asarray(v) for k, v in jhot.items()},
         dataclasses.asdict(jspec), rank, "cpu")
+    jopt = adamw_init(params)       # the JAX package's AdamWState
+    opt = adamw_state_from_numpy(np.asarray(jopt.step),
+                                 jax.tree.map(np.asarray, jopt.m),
+                                 jax.tree.map(np.asarray, jopt.v), cfg)
 
 Nothing here imports the JAX package; the inputs are dicts, tuples and
 numpy arrays.
@@ -35,6 +39,7 @@ from .core.engine_torch import DeviceGraph
 from .core.instructions import Instr, Plan
 from .distributed.rowstore import RowStoreSpec
 from .graph.dynamic import SNAPSHOT_BLOCKS, DeviceSnapshot, SnapshotShardSpec
+from .train.optimizer import AdamWState
 
 
 def _tuples(x: Any) -> Any:
@@ -122,6 +127,22 @@ def lm_state_dict_from_numpy(params: Mapping[str, Any],
         for name, leaf in leaves.items():
             sd[f"layers.{i}.{name}"] = _tensor(np.asarray(leaf)[i])
     return sd
+
+
+def adamw_state_from_numpy(step, m: Mapping[str, Any], v: Mapping[str, Any],
+                           cfg):
+    """The port's :class:`~repro_torch.train.optimizer.AdamWState` from the
+    JAX package's ``AdamWState`` fields as host data: ``step`` (its int32
+    counter) and the ``m`` and ``v`` pytrees of ``np.asarray`` leaves,
+    shaped as the LM params. The moments go by the names of
+    :func:`lm_state_dict_from_numpy` (stacked layer leaves split per
+    layer), in f32."""
+    moments = [{k: t.float() for k, t in
+                lm_state_dict_from_numpy(tree, cfg).items()}
+               for tree in (m, v)]
+    return AdamWState(step=torch.tensor(int(np.asarray(step)),
+                                        dtype=torch.int32),
+                      m=moments[0], v=moments[1])
 
 
 def row_shards_from_numpy(shards: np.ndarray, hot_rows: np.ndarray,

@@ -21,6 +21,13 @@
 //     as the mean of V over all Tk keys, not NaN.
 //   - ragged tails: any Tq and Tk; keys past Tk take no part at all.
 //   - d <= 128, a multiple of 8.
+//   - optional lse [B, Hq, Tq] f32 (contiguous), the row's log-sum-exp of
+//     the scaled, masked scores (m + log(l) in natural units), which the
+//     backward (flash_attention_bwd.cu) reads; a row that sees no key gets
+//     log(l) = log(Tk), its masked scores read as 0 rather than NEG_INF
+//     (NEG_INF + log(Tk) would round to NEG_INF and lose the 1/Tk
+//     weights). Written where each body normalises its rows, once a row;
+//     a null pointer (the serving path) skips it.
 //
 // Bound on this card: operations at the model's shapes (Tq = Tk = 4096,
 // d = 64: 4*d flops per visible (query, key) pair against 2*d*2 bytes of
@@ -116,6 +123,7 @@ template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse,
                  Strides sq, Strides sk, Strides sv, Strides so, int Hq,
                  int Hkv, int Tq, int Tk, int d, int causal, float scale,
                  int n_qtiles) {
@@ -227,6 +235,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < 4; ++r) {
     const int row = q0 + ty + 16 * r;
     if (row >= Tq) continue;
+    if (lse != nullptr && tx == 0)            // one lane of the row's 16
+      lse[static_cast<long long>(h) * Tq + row] =
+          (m[r] == kNegInf ? 0.f : m[r]) + logf(l[r]);
     const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
@@ -237,9 +248,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       void* out, const Strides* st, int B, int Hq, int Hkv,
-                       int Tq, int Tk, int d, int causal, float scale,
-                       cudaStream_t stream) {
+                       void* out, float* lse, const Strides* st, int B,
+                       int Hq, int Hkv, int Tq, int Tk, int d, int causal,
+                       float scale, cudaStream_t stream) {
   const int dmax = d <= 64 ? 64 : 128;
   const size_t smem = sizeof(float) *
       (kBQ * (dmax + 1) + kBK * (dmax + 1) + kBK * dmax + kBQ * (kBK + 1));
@@ -253,7 +264,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), st[0], st[1],
+      static_cast<const float*>(v), static_cast<float*>(out), lse, st[0],
+      st[1],
       st[2], st[3], Hq, Hkv, Tq, Tk, d, causal, scale, n_qtiles);
   return cudaGetLastError();
 }
@@ -413,7 +425,8 @@ __global__ void __launch_bounds__(2 * kWG, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                   const __grid_constant__ CUtensorMap map_k,
                   const __grid_constant__ CUtensorMap map_v,
-                  __nv_bfloat16* __restrict__ out, Strides so, int BH,
+                  __nv_bfloat16* __restrict__ out,
+                  float* __restrict__ lse, Strides so, int BH,
                   int Hq, int Hkv, int Tq, int Tk, int d, int causal,
                   float scale_log2, int n_qtiles) {
   extern __shared__ uint8_t smem_raw[];
@@ -595,6 +608,13 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int h2 = 0; h2 < 2; ++h2) {
     l[h2] += __shfl_xor_sync(0xffffffffu, l[h2], 1);
     l[h2] += __shfl_xor_sync(0xffffffffu, l[h2], 2);
+    // m is in log2 units; the quad's four lanes hold the same m and l,
+    // and its first lane writes the row's lse
+    const int row = row0 + 8 * h2;
+    if (lse != nullptr && (lane & 3) == 0 && row < Tq)
+      lse[static_cast<long long>(h) * Tq + row] =
+          (m[h2] == kNegInf ? 0.f : m[h2] * 0.6931471805599453f) +
+          logf(l[h2]);
     l[h2] = 1.f / (l[h2] == 0.f ? 1.f : l[h2]);
   }
 #pragma unroll
@@ -659,7 +679,7 @@ cudaError_t encode_map(CUtensorMap* map, const void* ptr, int B, int H,
 
 template <int NB>
 cudaError_t launch_bf16_nb(const CUtensorMap& mq, const CUtensorMap& mk,
-                           const CUtensorMap& mv, void* out,
+                           const CUtensorMap& mv, void* out, float* lse,
                            const Strides& so, int B, int Hq, int Hkv,
                            int Tq, int Tk, int d, int causal, float scale,
                            cudaStream_t stream) {
@@ -675,16 +695,16 @@ cudaError_t launch_bf16_nb(const CUtensorMap& mq, const CUtensorMap& mk,
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   flash_bf16_kernel<NB><<<static_cast<unsigned>(blocks), 2 * kWG, smem,
                           stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), so,
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, so,
       static_cast<int>(bh), Hq, Hkv, Tq, Tk, d, causal,
       scale * 1.4426950408889634f, n_qtiles);
   return cudaGetLastError();
 }
 
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* out, const Strides* st, int B, int Hq, int Hkv,
-                        int Tq, int Tk, int d, int causal, float scale,
-                        cudaStream_t stream) {
+                        void* out, float* lse, const Strides* st, int B,
+                        int Hq, int Hkv, int Tq, int Tk, int d, int causal,
+                        float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   cudaError_t err = encode_map(&mq, q, B, Hq, Tq, d, st[0]);
   if (Tk == 0) {               // no kv tile is read: any valid map will do
@@ -695,9 +715,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   }
   if (err != cudaSuccess) return err;
   if (d <= 64)
-    return launch_bf16_nb<1>(mq, mk, mv, out, st[3], B, Hq, Hkv, Tq, Tk, d,
-                             causal, scale, stream);
-  return launch_bf16_nb<2>(mq, mk, mv, out, st[3], B, Hq, Hkv, Tq, Tk, d,
+    return launch_bf16_nb<1>(mq, mk, mv, out, lse, st[3], B, Hq, Hkv, Tq,
+                             Tk, d, causal, scale, stream);
+  return launch_bf16_nb<2>(mq, mk, mv, out, lse, st[3], B, Hq, Hkv, Tq, Tk, d,
                            causal, scale, stream);
 }
 
@@ -709,12 +729,15 @@ extern "C" const char* error_string(int err) {
 
 // dtype: 0 = f32, 1 = bf16. `strides` holds 12 element strides: (batch,
 // head, row) of q, k, v and out in that order; the last dimension of each
-// is contiguous. Needs d <= 128 with d % 8 == 0 and Hq % Hkv == 0, and for
+// is contiguous. `lse` is a contiguous [B, Hq, Tq] f32 buffer for the
+// rows' log-sum-exp, or null. Needs d <= 128 with d % 8 == 0 and
+// Hq % Hkv == 0, and for
 // bf16 16-byte aligned bases and strides (the wrapper checks). Launches on
 // `stream` of `device` and returns the launch's cudaError_t (0 on
 // success). Does not synchronise.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B,
+                                      const void* v, void* out, void* lse,
+                                      int B,
                                       int Hq, int Hkv, int Tq, int Tk, int d,
                                       const long long* strides, int causal,
                                       float scale, int dtype, int device,
@@ -729,10 +752,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     st[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_f32(q, k, v, out, st, B, Hq, Hkv, Tq, Tk, d, causal, scale,
-                      s);
+    return launch_f32(q, k, v, out, static_cast<float*>(lse), st, B, Hq,
+                      Hkv, Tq, Tk, d, causal, scale, s);
   if (dtype == 1)
-    return launch_bf16(q, k, v, out, st, B, Hq, Hkv, Tq, Tk, d, causal,
-                       scale, s);
+    return launch_bf16(q, k, v, out, static_cast<float*>(lse), st, B, Hq,
+                       Hkv, Tq, Tk, d, causal, scale, s);
   return cudaErrorInvalidValue;
 }

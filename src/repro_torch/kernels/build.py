@@ -42,11 +42,22 @@ SIGNATURES: Dict[str, Tuple[str, List[type]]] = {
     #  grid, device, stream): the launch plan of kernels/rmsnorm.py
     "rmsnorm": ("rmsnorm_launch", [_P, _P, _P, _I, _I, _F, _I, _I, _I, _I,
                                    _I, _I, _I, _P]),
-    # (q, k, v, out, B, Hq, Hkv, Tq, Tk, d, strides, causal, scale, dtype,
-    #  device, stream); strides: 12 int64, (batch, head, row) of q, k, v, out
+    # (q, k, v, out, lse, B, Hq, Hkv, Tq, Tk, d, strides, causal, scale,
+    #  dtype, device, stream); strides: 12 int64, (batch, head, row) of q,
+    #  k, v, out; lse: [B, Hq, Tq] f32 or null
     "flash_attention": ("flash_attention_launch",
-                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, _F,
-                         _I, _I, _P]),
+                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _I,
+                         _F, _I, _I, _P]),
+    # (q, k, v, out, dout, lse, D, dq, dk, dv, B, Hq, Hkv, Tq, Tk, d,
+    #  strides, causal, scale, dtype, device, stream); strides: 24 int64,
+    #  (batch, head, row) of q, k, v, out, dout, dq, dk, dv; D: scratch
+    "flash_attention_bwd": ("flash_attention_bwd_launch",
+                            [_P] * 10 + [_I] * 6 + [_LL, _I, _F, _I, _I,
+                                                    _P]),
+    # (x, gamma, g, dx, dgamma, partial, R, d, eps, chunks, dtype, device,
+    #  stream); partial: [chunks, d] f32 scratch
+    "rmsnorm_bwd": ("rmsnorm_bwd_launch",
+                    [_P] * 6 + [_I, _I, _F, _I, _I, _I, _P]),
 }
 
 #: dtype code passed to a float kernel (``csrc/*.cu`` switch on it)

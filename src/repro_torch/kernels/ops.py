@@ -17,10 +17,18 @@ from typing import Optional
 import torch
 
 from . import dispatch, ref
-from .flash_attention import flash_attention_cuda
+from . import flash_attention as fa
+from . import rmsnorm as rn
 from .gather_intersect import gather_intersect_cuda
-from .rmsnorm import rmsnorm_cuda
 from .sorted_intersect import sorted_intersect_cuda
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    """Autograd records this call: the kernels go through their
+    ``torch.autograd.Function`` (forward + backward kernel). Under
+    ``inference_mode`` or ``no_grad`` (the serving path) it is False and
+    the forward launches alone, with no ``lse``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _check_binary_operands(a: torch.Tensor, b: torch.Tensor,
@@ -97,24 +105,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``impl``: auto | cuda (csrc/flash_attention.cu: strided views with a
     contiguous last dimension and 16-byte aligned strides, d <= 128) | ref
-    (the plain version). See
+    (the plain version; autograd differentiates it). When autograd
+    records the call, ``cuda`` goes through ``FlashAttentionFn``, whose
+    backward is csrc/flash_attention_bwd.cu. See
     :func:`repro_torch.kernels.ref.flash_attention` for the masking.
     """
     impl = dispatch.resolve_impl("flash_attention", impl,
                                  platform=q.device.type)
     if impl == "ref":
         return ref.flash_attention(q, k, v, causal=causal, scale=scale)
-    return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+    if _needs_grad(q, k, v):
+        return fa.FlashAttentionFn.apply(q, k, v, causal, scale,
+                                         fa.CUDA_PAIR)
+    return fa.flash_attention_cuda(q, k, v, causal=causal, scale=scale)
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,
             impl: str = "auto") -> torch.Tensor:
     """RMSNorm over the last axis; any leading dims.
 
-    ``impl``: auto | cuda (csrc/rmsnorm.cu, contiguous x) | ref.
+    ``impl``: auto | cuda (csrc/rmsnorm.cu, contiguous x; under autograd
+    through ``RMSNormFn``, whose backward is csrc/rmsnorm_bwd.cu) | ref
+    (the plain version; autograd differentiates it).
     """
     impl = dispatch.resolve_impl("rmsnorm", impl, platform=x.device.type)
     if impl == "ref":
         return ref.rmsnorm(x, gamma, eps)
     shape = x.shape
-    return rmsnorm_cuda(x.reshape(-1, shape[-1]), gamma, eps).reshape(shape)
+    rows = x.reshape(-1, shape[-1])
+    if _needs_grad(x, gamma):
+        return rn.RMSNormFn.apply(rows, gamma, eps, rn.CUDA_PAIR
+                                  ).reshape(shape)
+    return rn.rmsnorm_cuda(rows, gamma, eps).reshape(shape)

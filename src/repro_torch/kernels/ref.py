@@ -17,6 +17,7 @@ stay valid padded sets without compaction.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -73,11 +74,19 @@ def sorted_intersect_chunked(a: torch.Tensor, b: torch.Tensor,
 # --------------------------------------------------------------------------
 
 
+def _causal_mask(tq: int, tk: int, device) -> torch.Tensor:
+    """``[Tq, Tk]`` True where query ``i`` must not see key ``j``: the
+    causal mask aligned bottom-right (``j > i + (Tk - Tq)``)."""
+    qpos = torch.arange(tq, device=device)[:, None] + (tk - tq)
+    return torch.arange(tk, device=device)[None, :] > qpos
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, scale: Optional[float] = None
-                    ) -> torch.Tensor:
+                    causal: bool = True, scale: Optional[float] = None,
+                    return_lse: bool = False):
     """Attention in f32. q: [B, Hq, Tq, d]; k, v: [B, Hkv, Tk, d] ->
-    [B, Hq, Tq, d] in q's dtype.
+    [B, Hq, Tq, d] in q's dtype; with ``return_lse`` also the row
+    log-sum-exp ``lse`` [B, Hq, Tq] f32 that the backward reads.
 
     GQA: Hq is a multiple of Hkv and q head ``i`` reads kv head
     ``i // (Hq // Hkv)`` (grouped, the cache is never expanded). Causal
@@ -87,6 +96,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (causal with ``Tk < Tq``) comes out as the mean of V over all Tk
     keys. (``repro.kernels.ref.flash_attention`` masks with ``-inf`` and
     gives NaN there; the port follows the kernel.)
+
+    ``lse`` is ``logsumexp`` of the scaled, masked scores. For a row that
+    sees no key it is ``log(Tk)``: the log-sum-exp with the masked scores
+    read as 0 rather than ``NEG_INF`` (the same softmax, shifted), since
+    ``NEG_INF + log(Tk)`` rounds to ``NEG_INF`` in f32 and would lose the
+    row's weights ``1 / Tk``. The kernel writes the same value.
     """
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
@@ -97,12 +112,62 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.float().reshape(b, hkv, hq // hkv, tq, d)
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * scale
     if causal:
-        qpos = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
-        kpos = torch.arange(tk, device=q.device)[None, :]
-        s = s.masked_fill(kpos > qpos, NEG_INF)
+        mask = _causal_mask(tq, tk, q.device)
+        s = s.masked_fill(mask, NEG_INF)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bksd->bkgqd", w, v.float())
-    return out.reshape(b, hq, tq, d).to(q.dtype)
+    out = out.reshape(b, hq, tq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1)
+    if causal:
+        lse = torch.where(mask.all(dim=-1), math.log(tk), lse)
+    return out, lse.reshape(b, hq, tq)
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor,
+                             causal: bool = True,
+                             scale: Optional[float] = None):
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention`, by the
+    explicit formulas in f32 (not autograd), each cast to its input's
+    dtype:
+
+        P  = exp(scale * q k^T + mask - lse)     (recomputed from lse)
+        D  = rowsum(dout * out)
+        dS = P * (dout v^T - D), 0 where masked
+        dq = scale * dS k,  dk = scale * dS^T q,  dv = P^T dout
+
+    dk and dv sum over the q heads of each kv head's group. A masked
+    score has no gradient (the forward replaces it by a constant); a row
+    that sees no key has ``lse = log(Tk)`` and reads its masked scores as
+    0, so it gives each key ``dv += dout / Tk`` and no dq, dk.
+    """
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    if scale is None:
+        scale = d ** -0.5
+    qg = q.float().reshape(b, hkv, g, tq, d)
+    dog = dout.float().reshape(b, hkv, g, tq, d)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, kf) * scale
+    if causal:
+        mask = _causal_mask(tq, tk, q.device)
+        none = mask.all(dim=-1, keepdim=True)       # rows that see no key
+        s = s.masked_fill(mask, NEG_INF).masked_fill(mask & none, 0.0)
+    p = torch.exp(s - lse.float().reshape(b, hkv, g, tq, 1))
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dog, vf)
+    rows = (dog * out.float().reshape(b, hkv, g, tq, d)).sum(-1)
+    ds = p * (dp - rows[..., None])
+    if causal:
+        ds = ds.masked_fill(mask, 0.0)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qg) * scale
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dog)
+    return (dq.reshape(b, hq, tq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 # --------------------------------------------------------------------------
@@ -118,3 +183,22 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
     xf = x.float()
     ms = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * gamma.float()).to(x.dtype)
+
+
+def rmsnorm_backward(x: torch.Tensor, gamma: torch.Tensor, g: torch.Tensor,
+                     eps: float = 1e-6):
+    """The gradients ``(dx, dgamma)`` of :func:`rmsnorm` for the output
+    gradient ``g``, by the explicit formulas in f32 (not autograd):
+
+        rstd = rsqrt(mean(x^2) + eps),  xhat = x * rstd
+        dx     = rstd * (g*gamma - xhat * mean(g*gamma*xhat))
+        dgamma = sum over rows of g * xhat
+
+    each cast once to its input's dtype (x's, gamma's)."""
+    xf, gf, gam = x.float(), g.float(), gamma.float()
+    rstd = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * rstd
+    gg = gf * gam
+    dx = rstd * (gg - xhat * (gg * xhat).mean(dim=-1, keepdim=True))
+    dgamma = (gf * xhat).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dgamma.to(gamma.dtype)

@@ -20,22 +20,34 @@ before the launch:
   alignment allow them, else single elements.
 
 Its plain version is :func:`repro_torch.kernels.ref.rmsnorm`.
+
+Training adds the backward kernel ``csrc/rmsnorm_bwd.cu`` (the port's
+own: the Pallas kernel has no VJP), bound into :class:`RMSNormFn`. It
+recomputes ``rstd`` from x, so the forward stays the serving path's
+launch. It is memory-bound too (x, g read and dx written once) and
+deterministic: ``dgamma`` is summed by chunks of rows, then over the
+chunks in a fixed order, with no atomics.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
-from . import build
+from . import build, ref
 
 #: launches of the CUDA kernel by :func:`rmsnorm_cuda` since the last
 #: reset (callers set it to 0)
 launches = 0
 #: the same launches by body (callers set each to 0 with ``launches``)
 body_launches = {"register": 0, "block": 0}
+#: launches of the backward kernel by :func:`rmsnorm_bwd_cuda` since the
+#: last reset
+bwd_launches = 0
+#: the backward's chunks of rows (each a partial sum of dgamma), at most
+BWD_CHUNKS = 1024
 
 #: threads a block, at most (``kMaxThreads`` in the source)
 MAX_THREADS = 256
@@ -133,3 +145,74 @@ def rmsnorm_cuda(x: torch.Tensor, gamma: torch.Tensor,
     launches += 1
     body_launches[plan.body] += 1
     return out
+
+
+def rmsnorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
+                     g: torch.Tensor, eps: float = 1e-6):
+    """``(dx, dgamma)`` of RMSNorm on the card (``csrc/rmsnorm_bwd.cu``)
+    for the output gradient ``g``. x: [R, d] and gamma: [d] as
+    :func:`rmsnorm_cuda` takes them; ``g`` [R, d] of x's dtype, made
+    contiguous here when it is not. dx in x's dtype, dgamma in gamma's.
+    Its plain version is :func:`repro_torch.kernels.ref.rmsnorm_backward`.
+    """
+    global bwd_launches
+    check_float_cuda("x", x, 2, x.dtype)
+    check_float_cuda("gamma", gamma, 1, x.dtype)
+    g = g.contiguous()
+    check_float_cuda("g", g, 2, x.dtype)
+    if gamma.shape[0] != x.shape[1] or g.shape != x.shape or \
+            not (gamma.device == g.device == x.device):
+        raise ValueError(f"gamma{tuple(gamma.shape)} and g{tuple(g.shape)} "
+                         f"must be [d] and [R, d] on x's device for "
+                         f"x{tuple(x.shape)}")
+    R, d = x.shape
+    dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx, torch.zeros_like(gamma)
+    dgamma = torch.empty_like(gamma)
+    per_chunk = _ceil_div(R, BWD_CHUNKS)
+    chunks = _ceil_div(R, per_chunk)
+    partial = torch.empty((chunks, d), dtype=torch.float32, device=x.device)
+    lib = build.library("rmsnorm_bwd")
+    err = lib.rmsnorm_bwd_launch(
+        x.data_ptr(), gamma.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        dgamma.data_ptr(), partial.data_ptr(), R, d, float(eps), chunks,
+        build.dtype_code(x.dtype), x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "rmsnorm_bwd")
+    bwd_launches += 1
+    return dx, dgamma
+
+
+class NormPair(NamedTuple):
+    """An RMSNorm forward ``(x, gamma, eps) -> out`` over ``[R, d]`` rows
+    and the backward ``(x, gamma, g, eps) -> (dx, dgamma)``."""
+    forward: Callable
+    backward: Callable
+
+
+#: the kernels: the training path on the card
+CUDA_PAIR = NormPair(rmsnorm_cuda, rmsnorm_bwd_cuda)
+#: the plain versions, for the CPU tests of :class:`RMSNormFn`
+PLAIN_PAIR = NormPair(ref.rmsnorm, ref.rmsnorm_backward)
+
+
+class RMSNormFn(torch.autograd.Function):
+    """RMSNorm of ``[R, d]`` rows with a gradient: ``pair.forward`` gives
+    the output; x and gamma are saved (``rstd`` is recomputed by the
+    backward), and ``pair.backward`` computes dx and dgamma.
+    ``apply(x, gamma, eps, pair)``; ``ops.rmsnorm`` passes
+    :data:`CUDA_PAIR` when an input requires grad on the card."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps, pair):
+        out = pair.forward(x, gamma, eps)
+        ctx.save_for_backward(x, gamma)
+        ctx.eps, ctx.pair = eps, pair
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma = ctx.saved_tensors
+        dx, dgamma = ctx.pair.backward(x, gamma, g, ctx.eps)
+        return dx, dgamma, None, None

@@ -9,9 +9,17 @@ stacked parameters; ``repro_torch.convert.lm_state_dict_from_numpy``
 splits its ``[L, ...]`` leaves per layer). Step functions:
 
     forward        tokens [B, T] -> (logits [B, T, V], aux, caches)
+    loss_fn        mean next-token cross entropy of a batch (training)
+    decay_mask     which parameters AdamW decays (the reference's layout)
     prefill_step   full-sequence causal forward through the flash kernel;
                    the head is applied to the last position only
     decode_step    one token with the KV cache (written in place)
+
+Under autograd with ``cfg.remat`` each ``Block`` runs under
+``torch.utils.checkpoint`` (non-reentrant): its activations are not kept
+but recomputed in the backward, the counterpart of the reference's
+``jax.checkpoint(..., nothing_saveable)`` per scanned layer. The
+recompute runs the block's flash and RMSNorm forwards a second time.
 
 Every entry point takes ``attn_impl`` / ``norm_impl`` (auto | cuda | ref)
 for the flash and RMSNorm ops: ``auto`` launches the hand-written
@@ -29,14 +37,17 @@ kernels on a CUDA tensor and runs the plain versions on the CPU.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from ..core.engine_torch import resolve_device
 from ..layers.attention import GQAAttention, init_gqa_cache
-from ..layers.common import RMSNorm, dense_init, embed_init
+from ..layers.common import (RMSNorm, dense_init, embed_init,
+                             softmax_cross_entropy)
 from ..layers.mlp import SwiGLU
 
 
@@ -181,9 +192,15 @@ class Transformer(nn.Module):
         if positions is None:
             positions = torch.arange(t, device=tokens.device).expand(b, t)
         x = self.embed[tokens].to(self.cfg.dtype)
+        remat = self.cfg.remat and caches is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(x, positions, None if caches is None else caches[i],
-                      attn_impl=attn_impl, norm_impl=norm_impl)
+            if remat:
+                x = checkpoint(layer, x, positions, None, attn_impl,
+                               norm_impl, use_reentrant=False)
+            else:
+                x = layer(x, positions,
+                          None if caches is None else caches[i],
+                          attn_impl=attn_impl, norm_impl=norm_impl)
         if last_only:
             x = x[:, -1:].contiguous()          # the norm kernel's layout
         x = self.final_norm(x, impl=norm_impl)
@@ -211,6 +228,32 @@ def forward(model: Transformer, tokens: torch.Tensor,
                    norm_impl=norm_impl)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     return logits, aux, caches
+
+
+def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
+            attn_impl: str = "auto", norm_impl: str = "auto"
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training loss of a batch ``{tokens [B, T], labels [B, T]}`` on the
+    model's device: ``(ce + aux, {"ce": ce, "aux": aux})`` with ``ce``
+    the mean softmax cross entropy of the logits, as the reference's
+    ``loss_fn``. Call it with autograd on (not under ``inference_mode``):
+    the kernels then run with their backward kernels."""
+    logits, aux, _ = forward(model, batch["tokens"], attn_impl=attn_impl,
+                             norm_impl=norm_impl)
+    ce = softmax_cross_entropy(logits, batch["labels"])
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def decay_mask(params: Mapping[str, torch.Tensor]) -> Dict[str, bool]:
+    """Which of the named parameters AdamW decays: the reference's rule,
+    ``ndim >= 2``, taken on the reference's own leaf. The reference stacks
+    each ``Block`` parameter into one ``[L, ...]`` leaf
+    (``convert.lm_state_dict_from_numpy`` splits it per layer), so a
+    ``layers.<i>.`` tensor has one dimension more there: its 1-D norm
+    gains and QKV biases are decayed. ``embed`` and ``lm_head`` are
+    decayed, ``final_norm`` (a ``[D]`` leaf there too) is not."""
+    return {name: t.ndim + name.startswith("layers.") >= 2
+            for name, t in params.items()}
 
 
 def init_caches(cfg: LMConfig, b: int, s_max: int, device=None

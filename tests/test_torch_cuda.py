@@ -16,7 +16,11 @@ replayed CUDA graph. Flash attention: 2e-5 with f32 inputs (online
 softmax), 2e-2 abs with bf16 inputs against the f32 plain result
 on the same (upcast) inputs. The smoke models on the card equal the same
 models on the CPU within 2e-4, as tests/test_torch_lm.py holds them to
-the JAX package.
+the JAX package, in serving and in a training step (the backward kernels,
+with exact launch counts). The backward kernels against their plain
+f32 formulas: 1e-4 x max|want| in f32, 1e-2 x max|want| (flash) and one
+bf16 ulp plus 1e-6 x max|want| (rmsnorm) in bf16; both bit-equal from
+launch to launch.
 """
 
 import numpy as np
@@ -393,6 +397,165 @@ def test_smoke_lm_on_the_card_equals_the_cpu(card, arch):
         torch.testing.assert_close(lg.cpu(), want, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(lg.cpu(), ttf.prefill_step(cpu, toks),
                                rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,causal,strided", [
+    (2, 14, 2, 256, 256, 64, True, True),      # qwen2-0.5b heads, as the layer
+    (1, 4, 4, 130, 130, 64, True, False),      # group 1, ragged
+    (1, 14, 2, 200, 200, 64, False, True),     # not causal
+    (1, 4, 2, 256, 128, 64, True, False),      # rows that see no key
+    (1, 7, 1, 33, 90, 16, True, False),        # group 7, decode offset
+    (1, 16, 2, 100, 100, 128, True, True),     # d = 128
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_vs_plain(card, b, hq, hkv, tq, tk, d,
+                                             causal, strided, dtype):
+    """The backward kernel == ``ref.flash_attention_backward`` on the same
+    inputs (the kernel forward's out and lse): 1e-4 x max|want| in f32,
+    1e-2 x max|want| in bf16 (one rounding of each output); the forward's
+    lse == the plain lse within 1e-4; two launches bit-equal (no
+    atomics)."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=card).manual_seed(tq * 5 + tk + d)
+
+    def rand(h, t):
+        if strided:
+            return torch.randn((b, t, h, d), generator=gen, device=card
+                               ).to(dtype).transpose(1, 2)
+        return torch.randn((b, h, t, d), generator=gen,
+                           device=card).to(dtype)
+
+    q, k, v, dout = rand(hq, tq), rand(hkv, tk), rand(hkv, tk), rand(hq, tq)
+    out, lse = fa.flash_attention_lse_cuda(q, k, v, causal)
+    _, want_lse = ref.flash_attention(q, k, v, causal, return_lse=True)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal)
+    assert fa.bwd_launches == before + 1
+    want = ref.flash_attention_backward(q.float(), k.float(), v.float(),
+                                        out.float(), lse, dout.float(),
+                                        causal)
+    rel = 1e-4 if dtype == torch.float32 else 1e-2
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.stride() == torch.empty_like(t).stride()
+        torch.testing.assert_close(g.float(), w, rtol=0,
+                                   atol=rel * float(w.abs().max()))
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse,
+                                        dout.contiguous(), causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(4, 896), (1000, 896), (7, 1001),
+                                    (33, 2048), (3, 8192), (2000, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_kernel_vs_plain(card, rows, d, dtype):
+    """dx and dgamma == ``ref.rmsnorm_backward`` in f32: 1e-4 x max|want|
+    in f32; in bf16 one bf16 ulp of the f32 value plus 1e-6 x max|want|;
+    deterministic."""
+    from repro_torch.kernels import rmsnorm as rn
+    gen = torch.Generator(device=card).manual_seed(rows + d)
+    x = (torch.randn((rows, d), generator=gen, device=card) * 3).to(dtype)
+    g = torch.randn((rows, d), generator=gen, device=card).to(dtype)
+    gamma = torch.randn((d,), generator=gen, device=card).to(dtype)
+    before = rn.bwd_launches
+    got = rn.rmsnorm_bwd_cuda(x, gamma, g, 1e-6)
+    assert rn.bwd_launches == before + 1
+    want = ref.rmsnorm_backward(x.float(), gamma.float(), g.float(), 1e-6)
+    for gt, w in zip(got, want):
+        assert gt.dtype == dtype
+        err = (gt.float() - w).abs()
+        scale = float(w.abs().max())
+        bound = 1e-4 * scale if dtype == torch.float32 else \
+            bf16_ulp(w) + 1e-6 * scale
+        assert bool((err <= bound).all()), float(err.max())
+    again = rn.rmsnorm_bwd_cuda(x, gamma, g, 1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_autograd_functions_run_the_kernels_on_the_card(card):
+    """Under autograd ``ops`` go through the Functions with the CUDA pair
+    (one forward and one backward launch each), which equal the same
+    Functions over the plain pair; under inference_mode no backward and
+    no lse."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    gen = torch.Generator(device=card).manual_seed(0)
+    qkv = [torch.randn((2, h, 64, 32), generator=gen, device=card)
+           for h in (4, 2, 2)]
+    dout = torch.randn((2, 4, 64, 32), generator=gen, device=card)
+    grads = []
+    for pair in (fa.CUDA_PAIR, fa.PLAIN_PAIR):
+        ts = [t.clone().requires_grad_() for t in qkv]
+        fa.FlashAttentionFn.apply(*ts, True, None, pair).backward(dout)
+        grads.append([t.grad for t in ts])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    ts = [t.clone().requires_grad_() for t in qkv]
+    before = (fa.launches, fa.bwd_launches)
+    ops.flash_attention(*ts).backward(dout)
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    x = torch.randn((3, 5, 96), generator=gen, device=card,
+                    requires_grad=True)
+    gamma = torch.randn((96,), generator=gen, device=card,
+                        requires_grad=True)
+    before = (rn.launches, rn.bwd_launches)
+    ops.rmsnorm(x, gamma).square().sum().backward()
+    assert (rn.launches, rn.bwd_launches) == (before[0] + 1, before[1] + 1)
+    xc, gc = x.detach().cpu().requires_grad_(), \
+        gamma.detach().cpu().requires_grad_()
+    ref.rmsnorm(xc, gc).square().sum().backward()
+    torch.testing.assert_close(x.grad.cpu(), xc.grad, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(gamma.grad.cpu(), gc.grad, rtol=1e-4,
+                               atol=1e-4)
+    before = (fa.bwd_launches, rn.bwd_launches)
+    with torch.inference_mode():
+        ops.flash_attention(*qkv)
+        ops.rmsnorm(x, gamma)
+    assert (fa.bwd_launches, rn.bwd_launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "phi4-mini-3.8b"])
+def test_training_step_on_the_card_equals_the_cpu(card, arch, remat):
+    """One loss_fn + backward of the f32 smoke model on the card (the
+    kernels and their backward kernels) == the same weights on the CPU
+    (autograd over the plain versions) within 2e-4; the launches of the
+    step are exact: flash L forwards (2L with remat, the recompute) and L
+    backwards, rmsnorm 2L + 1 forwards (4L + 1 with remat) and 2L + 1
+    backwards."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipelines import LMStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models import transformer as ttf
+    from repro_torch.train.loop import to_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).smoke().model_cfg,
+                              remat=remat)
+    L = cfg.n_layers
+    cpu = ttf.init_params(cfg, seed=0, device="cpu")
+    gpu = ttf.Transformer(cfg, torch.Generator(device=card))
+    gpu.load_state_dict(cpu.state_dict())
+    batch = LMStream(vocab=cfg.vocab, seq_len=64, global_batch=2).batch(0)
+    fa.launches = fa.bwd_launches = rn.launches = rn.bwd_launches = 0
+    loss, _ = ttf.loss_fn(gpu, to_device(batch, card))
+    loss.backward()
+    torch.cuda.synchronize()
+    fwd = 2 if remat else 1
+    assert (fa.launches, fa.bwd_launches, rn.launches, rn.bwd_launches) == \
+        (fwd * L, L, 2 * fwd * L + 1, 2 * L + 1)
+    want, _ = ttf.loss_fn(cpu, to_device(batch, "cpu"))
+    want.backward()
+    torch.testing.assert_close(loss.cpu(), want.detach(), rtol=2e-4,
+                               atol=2e-4)
+    for (n, p), q in zip(gpu.named_parameters(), cpu.parameters()):
+        torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=2e-4,
+                                   atol=2e-4, msg=n)
 
 
 @pytest.mark.cuda
