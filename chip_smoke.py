@@ -85,8 +85,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``TRAIN_STEPS`` x a step's. It prints tokens/s of timed steps after the
    first, the peak device memory and a profiled step's busy share.
 
-Phase 1 also counts the HGMMA (``wgmma``) instructions in the flash
-library's SASS (``cuobjdump``) and fails if there are none. Phase 2 times
+Phase 1 also counts the HGMMA (``wgmma``) instructions in the SASS of
+both flash libraries, forward and backward (``cuobjdump``), and fails if
+either has none. Phase 2 times
 ``sorted_intersect`` on b with holes anywhere and on b with holes only in
 its tail, and also holds rmsnorm and flash_attention against their plain
 versions (rmsnorm: 1e-5 in f32, one bf16 ulp of the output in bf16, on
@@ -111,7 +112,14 @@ their plain backward formulas at the training shapes (flash: q [4, 14,
 no key, d = 128; rmsnorm: [16384, 896], an odd width, a wide row; the
 tolerances in ``phase_lm_bwd_kernels``), checks the flash backward twice
 for equal bits, and times both beside their bound and the backward of
-``F.scaled_dot_product_attention`` / ``F.rms_norm``.
+``F.scaled_dot_product_attention`` / ``F.rms_norm``: the flash backward
+by CUDA events, with each of its three kernels' device time from the
+profiler (and SDPA's backward error against the same plain f32 result,
+logged as context), the rmsnorm backward on the device alone (its
+kernels by a replayed CUDA graph, ``F.rms_norm``'s backward by the sum of
+its kernels' device times; eager times logged beside them). Phases 5 and
+9 require every rmsnorm launch, forward and backward, on the register
+body.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. It exits non-zero with no
@@ -198,6 +206,35 @@ def card_rate(table, name: str) -> float:
         if key in name:
             return rate
     raise RuntimeError(f"no rate known for card {name!r}")
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key shortened to the kernel's name: no return type, no
+    anonymous namespace, no argument list."""
+    key = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return key.split("(")[0][:60]
+
+
+def kernel_times_ms(fn, reps: int) -> dict:
+    """Device ms a call of each kernel ``fn()`` launches, by name, from
+    ``torch.profiler`` over ``reps`` calls after a warm-up (empty when the
+    profiler records no device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if e.device_type == DeviceType.CUDA and us > 0:
+            out[e.key] = us / 1e3 / reps
+    return out
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -871,6 +908,25 @@ def phase_lm_bwd_kernels(dev, bandwidth: float, peak: float) -> dict:
     if not all(torch.equal(x, y) for x, y in zip(a1, a2)):
         raise RuntimeError("flash_attention_bwd is not deterministic")
     del a1, a2
+    # SDPA's own backward against the same f32 plain result: context for
+    # the bf16 tolerance, no check
+    want = ref.flash_attention_backward(q.float(), k.float(), v.float(),
+                                        o.float(), lse, do.float(), causal)
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                          enable_gqa=True)
+    got = torch.autograd.grad(sdpa, (qs, ks, vs), do)
+    errs = [float((g.float() - w).abs().max() / w.abs().max())
+            for g, w in zip(got, want)]
+    log(f"  SDPA backward vs the plain f32 result at the training shape: "
+        f"max_abs_err / max dq/dk/dv {[f'{e:.3g}' for e in errs]} "
+        "(context, not checked)")
+    del want, got, qs, ks, vs, sdpa
+    split = kernel_times_ms(lambda: fa.flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, causal), 5)
+    log("  flash_attention_bwd by kernel (device ms a call, profiler): " +
+        ", ".join(f"{kernel_name(key)} {ms:.4f}"
+                  for key, ms in sorted(split.items(), key=lambda x: -x[1])))
     visible = t * (t + 1) // 2
     flops = 5 * 2 * b * hq * d * visible            # S, dP, dV, dK, dQ
     nbytes = (2 * 3 * b * hq * t * d + 2 * 2 * b * hkv * t * d) * 2 \
@@ -917,12 +973,20 @@ def phase_lm_bwd_kernels(dev, bandwidth: float, peak: float) -> dict:
                 worst = max(errs)
             tol = "1e-4 x max" if dtype == torch.float32 else \
                 "one bf16 ulp + 1e-6 x max"
-            log(f"  rmsnorm_bwd [{rows}, {d}] {str(dtype)[6:]}: max_abs_err "
-                f"dx {errs[0]:.3g}, dgamma {errs[1]:.3g} (tolerance {tol}): "
+            body = rn.rmsnorm_plan(rows, d, dtype, True).body
+            log(f"  rmsnorm_bwd [{rows}, {d}] {str(dtype)[6:]} ({body} "
+                f"body): max_abs_err dx {errs[0]:.3g}, dgamma "
+                f"{errs[1]:.3g} (tolerance {tol}): "
                 f"{'ok' if all(oks) else 'FAIL'}")
             if not all(oks):
                 raise RuntimeError("rmsnorm_bwd disagrees with its plain "
                                    f"version at [{rows}, {d}] {dtype}")
+    # timed on the device alone, as the forward is (rmsnorm_timing): the
+    # kernel's two launches by a replayed CUDA graph, F.rms_norm's backward
+    # (autograd, which a graph does not capture) by the sum of its kernels'
+    # device times in the profiler; eager times (CUDA events, host gaps
+    # included) are logged beside them
+    from repro_torch.launch.rmsnorm_ab import graph_ms
     rows, d = LM_BATCH * LM_SEQ, 896
     sets = [(rand((rows, d), torch.bfloat16), rand((d,), torch.bfloat16),
              rand((rows, d), torch.bfloat16)) for _ in range(3)]
@@ -930,19 +994,36 @@ def phase_lm_bwd_kernels(dev, bandwidth: float, peak: float) -> dict:
     for x, gam, g in sets:
         xs, gs = x.detach().requires_grad_(), gam.detach().requires_grad_()
         lib_sets.append((F.rms_norm(xs, (d,), gs, 1e-6), (xs, gs), g))
+    kernel = lambda x, gam, g: rn.rmsnorm_bwd_cuda(x, gam, g, 1e-6)
+    library = lambda y, ins, g: torch.autograd.grad(y, ins, g,
+                                                    retain_graph=True)
+    replay = graph_ms(kernel, sets)
+    device_ms = statistics.median(replay() for _ in range(RMS_ROUNDS))
+    del replay
+    split = kernel_times_ms(lambda: kernel(*sets[0]), 20)
+    lib_split = kernel_times_ms(lambda: library(*lib_sets[0]), 20)
+    eager = {"kernel": cuda_time_ms(rotating(kernel, sets), 40),
+             "library": cuda_time_ms(rotating(library, lib_sets), 40)}
+    for who, parts in (("kernel", split), ("F.rms_norm backward", lib_split)):
+        log(f"  rmsnorm_bwd [{rows}, {d}] bf16, {who} by kernel (device ms "
+            "a call, profiler): " +
+            ", ".join(f"{kernel_name(key)} {ms:.5f}"
+                      for key, ms in sorted(parts.items(),
+                                            key=lambda x: -x[1])))
+    log(f"  rmsnorm_bwd [{rows}, {d}] bf16: kernel device {device_ms:.5f} ms "
+        f"(graph replay, median of {RMS_ROUNDS}) / eager "
+        f"{eager['kernel']:.5f} ms; F.rms_norm backward device "
+        f"{sum(lib_split.values()):.5f} ms (profiler) / eager "
+        f"{eager['library']:.5f} ms")
     out["rmsnorm_bwd"] = dict(
-        ms=cuda_time_ms(rotating(lambda x, gam, g: rn.rmsnorm_bwd_cuda(
-            x, gam, g, 1e-6), sets), 40),
+        ms=device_ms,
         plain_ms=cuda_time_ms(rotating(lambda x, gam, g:
                                        ref.rmsnorm_backward(x, gam, g, 1e-6),
                                        sets), 8),
-        library_ms=cuda_time_ms(rotating(
-            lambda y, ins, g: torch.autograd.grad(y, ins, g,
-                                                  retain_graph=True),
-            lib_sets), 40),
+        library_ms=sum(lib_split.values()),
         bound_ms=(3 * rows * d + 2 * d) * 2 / bandwidth * 1e3,
         bound_by="bytes", max_abs_err=worst,
-        shape=f"[{rows}, {d}] bf16")
+        shape=f"[{rows}, {d}] bf16, device-only")
     del sets, lib_sets
     for name in ("flash_attention_bwd", "rmsnorm_bwd"):
         r = out[name]
@@ -972,22 +1053,26 @@ def zero_lm_counts() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     fa.launches = rn.launches = fa.bwd_launches = rn.bwd_launches = 0
-    for body in rn.body_launches:
-        rn.body_launches[body] = 0
+    for counts in (rn.body_launches, rn.bwd_body_launches):
+        for body in counts:
+            counts[body] = 0
 
 
 def expect_counts(tag: str, want: dict) -> dict:
-    """The launch counts must be ``want``, and every rmsnorm launch on the
-    register body (d = 896 bf16, aligned, in every layer)."""
+    """The launch counts must be ``want``, and every rmsnorm launch,
+    forward and backward, on the register body (d = 896 bf16, aligned, in
+    every layer)."""
     from repro_torch.kernels import rmsnorm as rn
     got = lm_counts()
-    log(f"  {tag}: launches {got}, rmsnorm by body {rn.body_launches}")
+    log(f"  {tag}: launches {got}, rmsnorm by body {rn.body_launches}, "
+        f"its backward by body {rn.bwd_body_launches}")
     if got != want:
         raise RuntimeError(f"{tag}: launches {got}, expected {want}")
-    if rn.body_launches["register"] != got["rmsnorm"]:
-        raise RuntimeError(f"{tag}: rmsnorm launches by body "
-                           f"{rn.body_launches}, expected all on the "
-                           "register body")
+    for kind, counts in (("rmsnorm", rn.body_launches),
+                         ("rmsnorm_bwd", rn.bwd_body_launches)):
+        if counts["register"] != got[kind]:
+            raise RuntimeError(f"{tag}: {kind} launches by body {counts}, "
+                               "expected all on the register body")
     return got
 
 
@@ -1028,7 +1113,7 @@ def device_profile(tag: str, fn) -> None:
     log(f"  profile {tag}: wall {wall:.4f} s (profiled), device busy "
         f"{busy:.4f} s ({100 * busy / wall:.1f}%), idle "
         f"{100 * (1 - busy / wall):.1f}%")
-    for us, count, key in rows[:6]:
+    for us, count, key in rows[:10]:
         log(f"    {us / 1e3:9.3f} ms {100 * us / 1e6 / busy:5.1f}% "
             f"x{count:<5d} {key[:90]}")
 
@@ -1932,16 +2017,17 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers",
                                        "spill", "smem")):
                 log(f"  [{name}] {line.strip()}")
-    # the bf16 flash body must run on the tensor cores: its SASS holds
-    # HGMMA (wgmma) instructions
+    # the bf16 flash bodies, forward and backward, must run on the tensor
+    # cores: their SASS holds HGMMA (wgmma) instructions
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run(
-        [str(cuobjdump), "-sass", str(build.library_path("flash_attention"))],
-        capture_output=True, text=True, check=True).stdout
-    hgmma = sum("HGMMA" in line for line in sass.splitlines())
-    log(f"  [flash_attention] {hgmma} HGMMA instructions in the SASS")
-    if hgmma == 0:
-        raise RuntimeError("the flash library has no HGMMA instruction")
+    for lib in ("flash_attention", "flash_attention_bwd"):
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(build.library_path(lib))],
+            capture_output=True, text=True, check=True).stdout
+        hgmma = sum("HGMMA" in line for line in sass.splitlines())
+        log(f"  [{lib}] {hgmma} HGMMA instructions in the SASS")
+        if hgmma == 0:
+            raise RuntimeError(f"the {lib} library has no HGMMA instruction")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C launch function and compiles on
 its own into a shared library (no PyTorch headers, so a build takes
 seconds), loaded with ``ctypes``. Builds happen at first use, never at
 import, into ``build/repro_torch/`` at the checkout's root, keyed by a hash
-of the source and the flags; the nvcc processes for every missing library
-are started together. A missing ``nvcc`` or a failed build raises.
+of the source, the ``csrc`` headers it includes and the flags; the nvcc
+processes for every missing library are started together. A missing
+``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -50,14 +52,16 @@ SIGNATURES: Dict[str, Tuple[str, List[type]]] = {
                          _F, _I, _I, _P]),
     # (q, k, v, out, dout, lse, D, dq, dk, dv, B, Hq, Hkv, Tq, Tk, d,
     #  strides, causal, scale, dtype, device, stream); strides: 24 int64,
-    #  (batch, head, row) of q, k, v, out, dout, dq, dk, dv; D: scratch
+    #  (batch, head, row) of q, k, v, out, dout, dq, dk, dv; D: a scratch
+    #  of 2 * B * Hq * ceil(Tq / 64) * 64 f32
     "flash_attention_bwd": ("flash_attention_bwd_launch",
                             [_P] * 10 + [_I] * 6 + [_LL, _I, _F, _I, _I,
                                                     _P]),
-    # (x, gamma, g, dx, dgamma, partial, R, d, eps, chunks, dtype, device,
-    #  stream); partial: [chunks, d] f32 scratch
+    # (x, gamma, g, dx, dgamma, partial, R, d, eps, chunks, body, warps,
+    #  dtype, device, stream); partial: [chunks, d] f32 scratch; body and
+    #  warps from the forward's plan
     "rmsnorm_bwd": ("rmsnorm_bwd_launch",
-                    [_P] * 6 + [_I, _I, _F, _I, _I, _I, _P]),
+                    [_P] * 6 + [_I, _I, _F, _I, _I, _I, _I, _I, _P]),
 }
 
 #: dtype code passed to a float kernel (``csrc/*.cu`` switch on it)
@@ -92,10 +96,31 @@ def nvcc_path() -> str:
                        "of repro_torch cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes (quoted
+    ``#include``, followed through the headers), in a fixed order."""
+    out, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        todo += [CSRC / m.decode() for m in _INCLUDE.findall(
+            path.read_bytes()) if (CSRC / m.decode()).is_file()]
+    return out
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where the library of ``csrc/<name>.cu`` is built: keyed by the
+    bytes of the source, of the headers it includes and of the flags."""
+    digest = hashlib.sha256()
+    for path in _sources(name):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, float]:

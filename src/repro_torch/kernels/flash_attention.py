@@ -14,9 +14,13 @@ header). Its plain version is :func:`repro_torch.kernels.ref.flash_attention`.
 Training adds an optional ``lse`` output of the forward and the backward
 kernel ``csrc/flash_attention_bwd.cu`` (the port's own: the Pallas kernel
 has no VJP), bound into :class:`FlashAttentionFn`. The backward is bound
-by operations too (five products of ``2*d`` flops a visible pair); it
-runs its products as f32 FMAs on shared-memory tiles, deterministically
-(no atomics: dk and dv sum the GQA group's q heads inside one block).
+by operations too (five products of ``2*d`` flops a visible pair). For
+bf16 it runs every product on the tensor cores (``wgmma``, P and dS as
+bf16 operands, f32 sums) with Q/dO or K/V tiles brought in by TMA: a
+dk/dv kernel per 128 keys and a dq kernel per 128 queries that recomputes
+S and dP; f32 inputs keep f32 FMAs on shared-memory tiles. Both are
+deterministic (no atomics: dk and dv sum the GQA group's q heads inside
+one block).
 """
 
 from __future__ import annotations
@@ -38,6 +42,10 @@ bwd_launches = 0
 
 #: TMA's alignment, in bytes, of a tensor's base address and of its strides
 ALIGN = 16
+#: the backward's scratch pads each (batch, head)'s rows to a multiple of
+#: this (``kQS`` in ``csrc/flash_attention_bwd.cu``: its bf16 body copies
+#: 64 rows of lse and D at a time)
+BWD_ROWS = 64
 
 
 def view_strides(name: str, t: torch.Tensor) -> Tuple[int, int, int]:
@@ -198,7 +206,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     strides += [view_strides(n, t) for n, t in (("dq", dq), ("dk", dk),
                                                  ("dv", dv))]
     flat = (ctypes.c_longlong * 24)(*[s for st in strides for s in st])
-    scratch = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    # D (and for bf16 lse * log2(e)) by row, rows padded to BWD_ROWS
+    scratch = torch.empty(2 * b * hq * -(-tq // BWD_ROWS) * BWD_ROWS,
+                          dtype=torch.float32, device=q.device)
     lib = build.library("flash_attention_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_bwd_launch(

@@ -26,7 +26,13 @@ own: the Pallas kernel has no VJP), bound into :class:`RMSNormFn`. It
 recomputes ``rstd`` from x, so the forward stays the serving path's
 launch. It is memory-bound too (x, g read and dx written once) and
 deterministic: ``dgamma`` is summed by chunks of rows, then over the
-chunks in a fixed order, with no atomics.
+chunks in a fixed order (eight runs of consecutive chunks, each in order,
+then the runs), with no atomics. Its body follows the forward's plan
+(:func:`rmsnorm_plan`; chunks of rows by :func:`bwd_chunks`): on the
+register body a group of lanes holds a row of x and g in registers, as
+the forward does (gamma in shared memory), each lane keeping its
+columns' dgamma over the chunk in registers; any other plan takes a block
+per chunk that passes over each row twice.
 """
 
 from __future__ import annotations
@@ -46,8 +52,12 @@ body_launches = {"register": 0, "block": 0}
 #: launches of the backward kernel by :func:`rmsnorm_bwd_cuda` since the
 #: last reset
 bwd_launches = 0
+#: the same launches by body (callers set each to 0 with ``bwd_launches``)
+bwd_body_launches = {"register": 0, "block": 0}
 #: the backward's chunks of rows (each a partial sum of dgamma), at most
 BWD_CHUNKS = 1024
+#: register body: rows each group of lanes takes in a chunk, at least
+BWD_ROWS_PER_GROUP = 8
 
 #: threads a block, at most (``kMaxThreads`` in the source)
 MAX_THREADS = 256
@@ -95,6 +105,19 @@ def rmsnorm_plan(R: int, d: int, dtype: torch.dtype,
     vec = vec if aligned and d % vec == 0 else 1
     threads = min(MAX_THREADS, max(32, _ceil_div(d // vec, 32) * 32))
     return RmsnormPlan("block", vec, threads // 32, 1, R)
+
+
+def bwd_chunks(R: int, plan: RmsnormPlan) -> int:
+    """The backward's chunks of consecutive rows for ``R >= 1`` rows under
+    the forward's ``plan``: at most :data:`BWD_CHUNKS`, each of
+    ``ceil(R / chunks)`` rows and none empty. On the register body there
+    are at most ``ceil(R / (plan.rows_per_block * BWD_ROWS_PER_GROUP))``
+    chunks, so that a lane's dgamma partial covers about
+    :data:`BWD_ROWS_PER_GROUP` rows before the block's groups are
+    added."""
+    least = plan.rows_per_block * BWD_ROWS_PER_GROUP \
+        if plan.body == "register" else 1
+    return _ceil_div(R, max(least, _ceil_div(R, BWD_CHUNKS)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,7 +176,8 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
     for the output gradient ``g``. x: [R, d] and gamma: [d] as
     :func:`rmsnorm_cuda` takes them; ``g`` [R, d] of x's dtype, made
     contiguous here when it is not. dx in x's dtype, dgamma in gamma's.
-    Its plain version is :func:`repro_torch.kernels.ref.rmsnorm_backward`.
+    The body is the forward's plan for x, g and gamma's alignment. Its
+    plain version is :func:`repro_torch.kernels.ref.rmsnorm_backward`.
     """
     global bwd_launches
     check_float_cuda("x", x, 2, x.dtype)
@@ -170,17 +194,19 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
     if x.numel() == 0:
         return dx, torch.zeros_like(gamma)
     dgamma = torch.empty_like(gamma)
-    per_chunk = _ceil_div(R, BWD_CHUNKS)
-    chunks = _ceil_div(R, per_chunk)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, g, gamma, dx))
+    plan = rmsnorm_plan(R, d, x.dtype, aligned)
+    chunks = bwd_chunks(R, plan)
     partial = torch.empty((chunks, d), dtype=torch.float32, device=x.device)
     lib = build.library("rmsnorm_bwd")
     err = lib.rmsnorm_bwd_launch(
         x.data_ptr(), gamma.data_ptr(), g.data_ptr(), dx.data_ptr(),
         dgamma.data_ptr(), partial.data_ptr(), R, d, float(eps), chunks,
-        build.dtype_code(x.dtype), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        BODY_CODES[plan.body], plan.warps, build.dtype_code(x.dtype),
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "rmsnorm_bwd")
     bwd_launches += 1
+    bwd_body_launches[plan.body] += 1
     return dx, dgamma
 
 

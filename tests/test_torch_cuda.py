@@ -20,7 +20,8 @@ the JAX package, in serving and in a training step (the backward kernels,
 with exact launch counts). The backward kernels against their plain
 f32 formulas: 1e-4 x max|want| in f32, 1e-2 x max|want| (flash) and one
 bf16 ulp plus 1e-6 x max|want| (rmsnorm) in bf16; both bit-equal from
-launch to launch.
+launch to launch, the flash backward's bf16 body (``wgmma``) at ragged T,
+d of 16 to 128 and every GQA group, rmsnorm's on both of its bodies.
 """
 
 import numpy as np
@@ -444,6 +445,103 @@ def test_flash_attention_bwd_kernel_vs_plain(card, b, hq, hkv, tq, tk, d,
     again = fa.flash_attention_bwd_cuda(q, k, v, out, lse,
                                         dout.contiguous(), causal)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,causal,strided", [
+    (1, 7, 1, 1000, 1000, 64, True, True),     # group 7, ragged
+    (2, 4, 2, 130, 130, 16, True, False),      # group 2, d = 16
+    (1, 2, 2, 130, 1000, 128, True, True),     # group 1, decode offset
+    (1, 4, 2, 1000, 130, 64, True, False),     # rows that see no key
+    (1, 4, 2, 130, 1000, 16, True, True),
+    (1, 14, 2, 1000, 130, 128, False, True),   # not causal
+    (2, 7, 1, 130, 1000, 64, False, False),
+    (1, 4, 4, 1000, 1000, 128, True, False),
+    (1, 4, 2, 1000, 130, 16, True, True),      # no key, d = 16, views
+])
+def test_flash_attention_bwd_bf16_body(card, b, hq, hkv, tq, tk, d, causal,
+                                       strided):
+    """The bf16 body (wgmma, P and dS as bf16 operands) at T that are not
+    multiples of its 64- and 128-row tiles, d of 16, 64 and 128, GQA
+    groups 1, 2 and 7, causal or not, rows that see no key and strided
+    [B, H, T, d] views of [B, T, H, d] tensors: within 1e-2 x max|want| of
+    the plain f32 formulas on the same inputs; two launches bit-equal;
+    dout made contiguous (another layout of the same values) gives the
+    same bits."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=card).manual_seed(tq * 11 + tk + d)
+
+    def rand(h, t):
+        if strided:
+            return torch.randn((b, t, h, d), generator=gen, device=card
+                               ).to(torch.bfloat16).transpose(1, 2)
+        return torch.randn((b, h, t, d), generator=gen,
+                           device=card).to(torch.bfloat16)
+
+    q, k, v, dout = rand(hq, tq), rand(hkv, tk), rand(hkv, tk), rand(hq, tq)
+    out, lse = fa.flash_attention_lse_cuda(q, k, v, causal)
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal)
+    other = fa.flash_attention_bwd_cuda(q, k, v, out, lse,
+                                        dout.contiguous(), causal)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 3
+    want = ref.flash_attention_backward(q.float(), k.float(), v.float(),
+                                        out.float(), lse, dout.float(),
+                                        causal)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == torch.bfloat16
+        assert g.stride() == torch.empty_like(t).stride()
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w, rtol=0,
+                                   atol=1e-2 * float(w.abs().max()))
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert all(torch.equal(x, y) for x, y in zip(got, other))
+    if causal and tk < tq:               # rows that see no key: no dq
+        assert not got[0][:, :, :tq - tk].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,offset", [
+    (16384, 896, False), (4, 896, False), (1, 896, False), (0, 896, False),
+    (33, 2048, False), (5, 3072, False), (3, 8192, False), (2000, 64, False),
+    (7, 1001, False), (17, 896, True), (3, 8192, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_bodies_vs_plain(card, rows, d, offset, dtype):
+    """The backward takes the forward's plan: the register body at every
+    group width (1, 2, 4, 8 warps a row), the block body for d = 1001,
+    misaligned views and f32 rows wider than the lanes' registers; R = 0
+    launches nothing. Tolerances as test_rmsnorm_bwd_kernel_vs_plain;
+    bit-equal from launch to launch."""
+    from repro_torch.kernels import rmsnorm as rn
+    gen = torch.Generator(device=card).manual_seed(rows + d + offset + 1)
+    x = (torch.randn((rows, d), generator=gen, device=card) * 3).to(dtype)
+    g = torch.randn((rows, d), generator=gen, device=card).to(dtype)
+    gamma = torch.randn((d,), generator=gen, device=card).to(dtype)
+    if offset:
+        x, g = _offset_view(x), _offset_view(g)
+    aligned = x.data_ptr() % 16 == 0
+    assert aligned != offset
+    body = rn.rmsnorm_plan(rows, d, dtype, aligned).body
+    assert body == ("block" if offset or d == 1001 or
+                    (d == 8192 and dtype == torch.float32) else "register")
+    before, by_body = rn.bwd_launches, dict(rn.bwd_body_launches)
+    got = rn.rmsnorm_bwd_cuda(x, gamma, g, 1e-6)
+    again = rn.rmsnorm_bwd_cuda(x, gamma, g, 1e-6)
+    torch.cuda.synchronize()
+    n = 2 if rows else 0
+    assert rn.bwd_launches == before + n
+    assert rn.bwd_body_launches == {**by_body, body: by_body[body] + n}
+    want = ref.rmsnorm_backward(x.float(), gamma.float(), g.float(), 1e-6)
+    for gt, w in zip(got, want):
+        assert gt.dtype == dtype and gt.shape == w.shape
+        err = (gt.float() - w).abs()
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        bound = 1e-4 * scale if dtype == torch.float32 else \
+            bf16_ulp(w) + 1e-6 * scale
+        assert bool((err <= bound).all()), float(err.max())
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.cuda

@@ -222,3 +222,34 @@ def test_cuda_impl_on_cpu_tensors_raises(monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_INTERSECT_IMPL", "cuda")
     with pytest.raises(ValueError, match="CUDA tensor"):
         ops.intersect_padded(a, a, 9)
+
+
+def test_library_path_hashes_the_headers_a_source_includes(monkeypatch,
+                                                           tmp_path):
+    """A library's build path is keyed by its source and by every csrc
+    header it includes (followed through headers): an edit to a shared
+    header rebuilds each library that includes it, and no other."""
+    from repro_torch.kernels import build
+    (tmp_path / "a.cu").write_text('#include "h1.cuh"\n#include <stdint.h>\n')
+    (tmp_path / "b.cu").write_text("int b;\n")
+    (tmp_path / "h1.cuh").write_text('#include "h2.cuh"\nint h1;\n')
+    (tmp_path / "h2.cuh").write_text("int h2;\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert [p.name for p in build._sources("a")] == ["a.cu", "h1.cuh",
+                                                     "h2.cuh"]
+    before = {n: build.library_path(n) for n in ("a", "b")}
+    (tmp_path / "h2.cuh").write_text("int h2 = 1;\n")
+    after = {n: build.library_path(n) for n in ("a", "b")}
+    assert after["a"] != before["a"] and after["b"] == before["b"]
+    assert after["a"].name.startswith("a-")
+    (tmp_path / "h2.cuh").write_text("int h2;\n")
+    assert build.library_path("a") == before["a"]
+
+
+def test_both_flash_libraries_include_the_hopper_header():
+    from repro_torch.kernels import build
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert [p.name for p in build._sources(name)] == [
+            f"{name}.cu", "hopper.cuh"]
+    assert [p.name for p in build._sources("rmsnorm_bwd")] == [
+        "rmsnorm_bwd.cu"]

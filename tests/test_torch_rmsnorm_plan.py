@@ -165,3 +165,22 @@ def test_register_body_emulation_equals_pallas_interpret(shape, dtype):
     else:
         assert (np.abs(got - want) <= _bf16_ulp(want)).all(), \
             float(np.abs(got - want).max())
+
+
+@pytest.mark.parametrize("d", [896, 1001, 2048, 8192])
+def test_backward_chunks_cover_every_row_once(d):
+    """The backward's chunks (``bwd_chunks``) for the forward's plan: at
+    most BWD_CHUNKS chunks of ``ceil(R / chunks)`` consecutive rows, none
+    empty; on the register body no more chunks than give each of a
+    block's groups BWD_ROWS_PER_GROUP rows."""
+    for R in list(range(1, 300)) + [16384, 100_000, 1_000_000]:
+        plan = rn.rmsnorm_plan(R, d, torch.bfloat16, True)
+        chunks = rn.bwd_chunks(R, plan)
+        per = -(-R // chunks)
+        assert 1 <= chunks <= min(R, rn.BWD_CHUNKS)
+        assert (chunks - 1) * per < R <= chunks * per
+        if plan.body == "register":
+            least = plan.rows_per_block * rn.BWD_ROWS_PER_GROUP
+            assert chunks <= -(-R // least)
+    assert rn.bwd_chunks(16384, rn.rmsnorm_plan(
+        16384, 896, torch.bfloat16, True)) == 256
