@@ -83,18 +83,47 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    steps' losses, the final parameters and AdamW moments must equal the
    uninterrupted run's bit for bit, every loss finite, the launches
    ``TRAIN_STEPS`` x a step's. It prints tokens/s of timed steps after the
-   first, the peak device memory and a profiled step's busy share.
+   first, the peak device memory and a profiled step's busy share;
+10. MoE and MLA serving at full width, after phase 9 and before the
+   enumeration phases, one model at a time (freed after): granite-moe-
+   3b-a800m (GQA 24/8, 40 experts top-8) and deepseek-v2-lite-16b (MLA,
+   64 experts top-6 + 2 shared, a dense first layer), bf16 from seed 0 on
+   the card. ``prefill_step`` at 4 x 4096 with the kernels (twice: the
+   same bits) and with the plain versions; logits within
+   ``LM_TOL_FLOORS`` x the plain bf16 run's distance from the same
+   weights in f32 (granite: an f32 copy of the model; deepseek: block by
+   block, ``prefill_f32_by_layer``), with the routing flips (tokens whose
+   top-k expert set differs) between kernels and plain and between plain
+   and f32 logged; exactly L flash_attention launches and 2L + 1 (GQA) or
+   3L + 1 (MLA: its latent norm too) rmsnorm launches a prefill, 0 and
+   the same a decode step, all rmsnorm launches on the register body;
+   the device time of a prefill by kind of kernel and one MoE layer's
+   stages (router, dispatch, gather, expert products, combine, shared);
+   the serve loop as phase 5's, teacher-forced with the plain versions;
+   decode after the prompt == ``prefill_step`` with ``capacity_factor =
+   E / k`` (no drops: at the config's factor a 4-token decode step has
+   one slot an expert).
 
 Phase 1 also counts the HGMMA (``wgmma``) instructions in the SASS of
 both flash libraries, forward and backward (``cuobjdump``), and fails if
-either has none. Phase 2 times
+either has none, or if any instantiation of the forward's bf16 body
+(``flash_bf16_kernel<NBQK, NBV>``, MLA's (3, 2) among them) has none.
+Phase 2 also holds the flash kernel at MLA's widths (q and k 192, v 128,
+deepseek's prefill shape; the layer's views; f32 at ``MLA_F32_SEQ``),
+and at the launcher's other unequal width pairs ((128, 64), (64, 128),
+(192, 64): every other bf16 body and f32 tile), against its plain version
+and times it beside its bound and
+``F.scaled_dot_product_attention``, naming the backends that take
+``Ev != E`` (``phase_mla_flash``). Phase 2 times
 ``sorted_intersect`` on b with holes anywhere and on b with holes only in
 its tail, and also holds rmsnorm and flash_attention against their plain
 versions (rmsnorm: 1e-5 in f32, one bf16 ulp of the output in bf16, on
-both of its bodies: every register-body width of the three configs, an
-odd width and a misaligned view; flash: 2e-5 with f32 inputs, 2e-2 abs
-with bf16 inputs against the f32 plain result, on contiguous tensors and
-on ``[B, H, T, d]`` views of ``[B, T, H, d]`` ones) and times them at the
+both of its bodies: the widths of the dense configs, each width phase
+10's models run (1536, 2048 and MLA's latent 512) at the prefill and the
+decode rows, an odd width and a misaligned view; flash: 2e-5 with f32
+inputs, 2e-2 abs with bf16 inputs against the f32 plain result, on
+contiguous tensors and on ``[B, H, T, d]`` views of ``[B, T, H, d]``
+ones, granite's GQA 24/8 at the prefill shape among them) and times them at the
 prefill shape beside the plain version, the bound (the larger of bytes
 over the memory rate and flops over the dense bf16 tensor-core rate) and
 one PyTorch library call (``F.rms_norm``,
@@ -158,6 +187,15 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_CACHE = 4, 16, 32, 128
 # TRAIN_STEPS steps with a checkpoint every TRAIN_CKPT_EVERY
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 4096, 1e-3
 TRAIN_STEPS, TRAIN_CKPT_EVERY = 6, 3
+# phase 10: the MoE models, served at LM_BATCH x LM_SEQ and the serve loop
+# above; the f32 yardstick of deepseek (58.5 GiB in f32 beside 29.3 GiB in
+# bf16) is taken block by block
+MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b")
+F32_BY_LAYER = ("deepseek-v2-lite-16b",)
+# phase 2: flash attention at MLA's widths (q and k 128 nope + 64 rope, v
+# 128; deepseek's 16 heads), and the shorter T of its f32 check
+MLA_HEADS, MLA_NOPE, MLA_ROPE, MLA_V = 16, 128, 64, 128
+MLA_F32_SEQ = 1024
 # kernels vs plain versions end to end in bf16: both round every
 # activation to 8 significant bits, in other orders, through 24 layers.
 # The yardstick is measured in the run: ``floor`` = max |plain bf16 - the
@@ -199,6 +237,22 @@ def gc_paused():
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+def hgmma_by_body(sass: str) -> dict:
+    """HGMMA instructions in each instantiation ``flash_bf16_kernel<NBQK,
+    NBV>`` of ``cuobjdump -sass`` output, by ``(NBQK, NBV)``."""
+    import re
+    out, body = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_bf16_kernelILi(\d+)ELi(\d+)E", line)
+            body = (int(m.group(1)), int(m.group(2))) if m else None
+            if body is not None:
+                out[body] = 0
+        elif body is not None and "HGMMA" in line:
+            out[body] += 1
+    return out
 
 
 def card_rate(table, name: str) -> float:
@@ -683,13 +737,21 @@ def phase_lm_kernels(dev, bandwidth: float, peak: float) -> dict:
     gen.manual_seed(SEED + 1)
     out = {}
 
-    # -- rmsnorm: the prefill rows, the decode rows, every register-body
-    # width of the three configs and of the card tests, an odd width and a
+    # -- rmsnorm: the prefill rows, the decode rows, the widths of the
+    # dense configs and of the card tests, each width the MoE models of
+    # phase 10 run at their prefill and decode rows (granite 1536,
+    # deepseek 2048 and MLA's latent norm 512), an odd width and a
     # misaligned view (the block body)
     worst = 0.0
     for rows, d, offset in ((LM_BATCH * LM_SEQ, 896, False), (4, 896, False),
                             (1, 896, False), (33, 2048, False),
                             (5, 3072, False), (3, 8192, False),
+                            (LM_BATCH * LM_SEQ, 1536, False),
+                            (SERVE_BATCH, 1536, False),
+                            (LM_BATCH * LM_SEQ, 2048, False),
+                            (SERVE_BATCH, 2048, False),
+                            (LM_BATCH * LM_SEQ, 512, False),
+                            (SERVE_BATCH, 512, False),
                             (1000, 1001, False), (17, 896, True),
                             (3, 8192, True)):
         for dtype in (torch.bfloat16, torch.float32):
@@ -734,6 +796,8 @@ def phase_lm_kernels(dev, bandwidth: float, peak: float) -> dict:
     cases = [  # (B, Hq, Hkv, Tq, Tk, d, causal, strided)
         (LM_BATCH, 14, 2, LM_SEQ, LM_SEQ, 64, True, False),  # prefill shape
         (LM_BATCH, 14, 2, LM_SEQ, LM_SEQ, 64, True, True),   # as the layer
+        (LM_BATCH, 24, 8, LM_SEQ, LM_SEQ, 64, True, False),  # granite's GQA
+        (LM_BATCH, 24, 8, LM_SEQ, LM_SEQ, 64, True, True),
         (1, 16, 2, 2048, 2048, 128, True, False),
         (1, 16, 2, 2048, 2048, 128, True, True),
         (1, 14, 2, 1000, 1000, 64, True, False),             # ragged tails
@@ -820,6 +884,148 @@ def phase_lm_kernels(dev, bandwidth: float, peak: float) -> dict:
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     torch.cuda.empty_cache()
     return out
+
+
+def sdpa_backends(q, k, v, **kw) -> str:
+    """The backends of ``F.scaled_dot_product_attention`` that take these
+    inputs (each tried alone), and the kernels the default call runs."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    took = []
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            with sdpa_kernel([backend]):
+                F.scaled_dot_product_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            took.append(name)
+        except RuntimeError:
+            pass
+    names = sorted(kernel_name(key) for key in kernel_times_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, **kw), 1))
+    return (f"backends that take it alone: {took or 'none'}; the default "
+            f"call runs {names}")
+
+
+def mla_qkv(gen, b, t, dtype, views):
+    """q, k [B, H, T, nope + rope] and v [B, H, T, v] at MLA's widths:
+    contiguous, or as the MLA layer passes them (q and k head-major views
+    of ``[B, T, H, d]`` tensors, v the last ``v`` columns of a
+    ``[B, T, H, nope + v]`` product, viewed head-major)."""
+    import torch
+    h, dqk = MLA_HEADS, MLA_NOPE + MLA_ROPE
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=gen.device
+                           ).to(dtype)
+    if not views:
+        return rand(b, h, t, dqk), rand(b, h, t, dqk), rand(b, h, t, MLA_V)
+    return (rand(b, t, h, dqk).transpose(1, 2),
+            rand(b, t, h, dqk).transpose(1, 2),
+            rand(b, t, h, MLA_NOPE + MLA_V)[..., MLA_NOPE:].transpose(1, 2))
+
+
+def phase_mla_flash(dev, bandwidth: float, peak: float) -> dict:
+    """The flash kernel at MLA's widths (q and k 192, v 128) against its
+    plain version: bf16 at deepseek's prefill shape, contiguous and as the
+    layer's views, a ragged T, and f32 at MLA_F32_SEQ (2e-2 abs in bf16,
+    2e-5 in f32, as phase 2's other flash cases); then timed on the
+    layer's views beside its bound, the plain version and
+    ``F.scaled_dot_product_attention`` at the same shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    dqk, dv = MLA_NOPE + MLA_ROPE, MLA_V
+    scale = dqk ** -0.5
+    worst = 0.0
+    for b, t, causal, dtype, views in (
+            (LM_BATCH, LM_SEQ, True, torch.bfloat16, False),
+            (LM_BATCH, LM_SEQ, True, torch.bfloat16, True),
+            (1, 1000, True, torch.bfloat16, True),
+            (2, 700, False, torch.bfloat16, True),
+            (LM_BATCH, MLA_F32_SEQ, True, torch.float32, False),
+            (LM_BATCH, MLA_F32_SEQ, True, torch.float32, True),
+            (1, 1000, True, torch.float32, True)):
+        q, k, v = mla_qkv(gen, b, t, dtype, views)
+        got = fa.flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+        want = ref.flash_attention(q.float(), k.float(), v.float(),
+                                   causal=causal, scale=scale)
+        torch.cuda.synchronize()
+        err = float((got.float() - want).abs().max())
+        if dtype == torch.float32:
+            ok = bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs()).all())
+        else:
+            ok = err <= 2e-2
+            worst = max(worst, err)
+        log(f"  flash_attention MLA B={b} H={MLA_HEADS} T={t} dqk={dqk} "
+            f"dv={dv} causal={causal} views={views} {str(dtype)[6:]}: "
+            f"out {tuple(got.shape)}, max_abs_err {err:.3g}: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok or got.shape != (b, MLA_HEADS, t, dv):
+            raise RuntimeError("flash_attention disagrees with its plain "
+                               f"version at MLA's widths, {(b, t, dtype)}")
+        del q, k, v, got, want
+    # the launcher's other unequal pairs: bf16 bodies <2, 1>, <1, 2> and
+    # <3, 1>, f32 tiles <128, 64>, <64, 128> and <192, 64> (GQA 6/2, ragged)
+    for dqk_o, dv_o in ((128, 64), (64, 128), (192, 64)):
+        for dtype in (torch.bfloat16, torch.float32):
+            def rand(h, t, d):
+                return torch.randn((1, h, t, d), generator=gen,
+                                   device=dev).to(dtype)
+            q, k, v = rand(6, 1000, dqk_o), rand(2, 1000, dqk_o), \
+                rand(2, 1000, dv_o)
+            got = fa.flash_attention_cuda(q, k, v)
+            want = ref.flash_attention(q.float(), k.float(), v.float())
+            torch.cuda.synchronize()
+            err = float((got.float() - want).abs().max())
+            ok = bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs()).all()
+                      ) if dtype == torch.float32 else err <= 2e-2
+            log(f"  flash_attention B=1 Hq=6 Hkv=2 T=1000 dqk={dqk_o} "
+                f"dv={dv_o} causal {str(dtype)[6:]}: max_abs_err "
+                f"{err:.3g}: {'ok' if ok else 'FAIL'}")
+            if not ok or got.shape != (1, 6, 1000, dv_o):
+                raise RuntimeError("flash_attention disagrees with its "
+                                   f"plain version at {(dqk_o, dv_o)}")
+            del q, k, v, got, want
+    b, h, t = LM_BATCH, MLA_HEADS, LM_SEQ
+    visible = t * (t + 1) // 2
+    flops = 2 * (dqk + dv) * b * h * visible
+    nbytes = b * h * t * (2 * dqk + 2 * dv) * 2
+    bound_ms = max(flops / peak, nbytes / bandwidth) * 1e3
+    bound_by = "operations" if flops / peak > nbytes / bandwidth \
+        else "bytes"
+    q, k, v = mla_qkv(gen, b, t, torch.bfloat16, True)
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    res = dict(
+        ms=cuda_time_ms(lambda: fa.flash_attention_cuda(
+            q, k, v, scale=scale), 20),
+        contiguous_ms=cuda_time_ms(lambda: fa.flash_attention_cuda(
+            qc, kc, vc, scale=scale), 20),
+        plain_ms=cuda_time_ms(lambda: ref.flash_attention(
+            q, k, v, scale=scale), 2),
+        library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, is_causal=True, scale=scale), 20),
+        bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst,
+        shape=f"q,k [{b},{h},{t},{dqk}] v [{b},{h},{t},{dv}] bf16 causal, "
+              "the layer's views")
+    log(f"  flash_attention at MLA's shape ({res['shape']}): kernel "
+        f"{res['ms']:.4f} ms (contiguous {res['contiguous_ms']:.4f}), plain "
+        f"{res['plain_ms']:.4f} ms, SDPA (contiguous) "
+        f"{res['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{flops:.4g} flops, {nbytes} bytes), {100 * bound_ms / res['ms']:.1f}"
+        "% of bound")
+    log(f"  SDPA at MLA's shape: "
+        f"{sdpa_backends(qc, kc, vc, is_causal=True, scale=scale)}")
+    del q, k, v, qc, kc, vc
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_lm_bwd_kernels(dev, bandwidth: float, peak: float) -> dict:
@@ -1085,9 +1291,11 @@ def compare_logits(tag: str, got, want, tol: float) -> None:
         raise RuntimeError(f"{tag}: logits differ by {diff} > {tol}")
 
 
-def device_profile(tag: str, fn) -> None:
+def device_profile(tag: str, fn) -> list:
     """Run ``fn`` under torch.profiler; print the wall time, the device's
-    busy share (kernel time over wall) and the kernels by device time."""
+    busy share (kernel time over wall) and the kernels by device time.
+    Returns the kernels' ``(device µs, launches, name)``, longest first
+    (empty when the profiler records no device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1109,13 +1317,14 @@ def device_profile(tag: str, fn) -> None:
     if busy == 0:
         log(f"  profile {tag}: the profiler recorded no device time "
             "(busy share not measured)")
-        return
+        return rows
     log(f"  profile {tag}: wall {wall:.4f} s (profiled), device busy "
         f"{busy:.4f} s ({100 * busy / wall:.1f}%), idle "
         f"{100 * (1 - busy / wall):.1f}%")
     for us, count, key in rows[:10]:
         log(f"    {us / 1e3:9.3f} ms {100 * us / 1e6 / busy:5.1f}% "
             f"x{count:<5d} {key[:90]}")
+    return rows
 
 
 def phase_lm(dev) -> dict:
@@ -1476,6 +1685,335 @@ def phase_train(dev) -> dict:
     del model, opt
     torch.cuda.empty_cache()
     log(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: MoE and MLA serving at full width
+# ---------------------------------------------------------------------------
+
+
+def moe_modules(module):
+    from repro_torch.layers.moe import MoE
+    return [m for m in module.modules() if isinstance(m, MoE)]
+
+
+@contextlib.contextmanager
+def routing_recorded(modules, into: list):
+    """Forward hooks on MoE ``modules`` that append each call's routing
+    (the top-k expert set of every token, sorted) to ``into``, in call
+    order. The route is recomputed from the layer's input (a [n_tok, E]
+    f32 product), outside the layer's own work."""
+    def hook(mod, inp, _):
+        x = inp[0]
+        into.append(mod.route(x.reshape(-1, x.shape[-1])).experts
+                    .sort(dim=-1).values)
+    handles = [m.register_forward_hook(hook) for m in modules]
+    try:
+        yield into
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def routing_flips(a: list, b: list) -> str:
+    """Tokens whose expert set differs between two runs' routings, summed
+    over the MoE layers, and tokens with a difference in any layer."""
+    import torch
+    diff = torch.stack([(x != y).any(dim=-1) for x, y in zip(a, b)])
+    return (f"{int(diff.sum())} of {diff.numel()} (token, layer) expert "
+            f"sets differ; {int(diff.any(dim=0).sum())} of {diff.shape[1]} "
+            "tokens differ in some layer")
+
+
+def prefill_f32_by_layer(model, tokens, into: list):
+    """``prefill_step`` of ``model`` in f32 (the plain versions, TF32 off)
+    without an f32 copy of the whole model: the embedding rows in f32,
+    then each block copied to f32 alone (at most one MoE block, 2.2 GiB
+    for deepseek, at a time), the final norm and an f32 copy of the head
+    on the last position. The same function as the f32 model's
+    ``prefill_step``, term by term. Routing goes to ``into``."""
+    import copy
+    import torch
+    b, t = tokens.shape
+    positions = torch.arange(t, device=tokens.device).expand(b, t)
+    x = model.embed[tokens].float()
+    for layer in model.layers:
+        block = copy.deepcopy(layer).float()
+        with routing_recorded(moe_modules(block), into):
+            x, _ = block(x, positions, None, attn_impl="ref",
+                         norm_impl="ref")
+        del block
+    x = model.final_norm(x[:, -1:], impl="ref")
+    head = model.embed.T if model.lm_head is None else model.lm_head
+    return (x @ head.float())[:, -1]
+
+
+def prefill_f32(model, tokens, into: list, by_layer: bool):
+    """The yardstick's f32 run: the whole model copied to f32 (as phase 5
+    does), or block by block where that copy does not fit beside the
+    bf16 model (:func:`prefill_f32_by_layer`)."""
+    import torch
+    from repro_torch.models.transformer import Transformer, prefill_step
+    if by_layer:
+        with torch.inference_mode():
+            return prefill_f32_by_layer(model, tokens, into)
+    model32 = Transformer(dataclasses.replace(model.cfg,
+                                              dtype=torch.float32),
+                          torch.Generator(device=tokens.device))
+    model32.load_state_dict(model.state_dict())       # bf16 -> f32 copy
+    with routing_recorded(moe_modules(model32), into):
+        out = prefill_step(model32, tokens, attn_impl="ref",
+                           norm_impl="ref")
+    del model32
+    torch.cuda.empty_cache()
+    return out
+
+
+def device_ms_by_kind(rows: list) -> dict:
+    """Device ms of :func:`device_profile`'s kernel ``rows`` summed by
+    kind of kernel."""
+    kinds = (("flash_attention", ("flash_bf16_kernel",)),
+             ("rmsnorm", ("rmsnorm",)),
+             ("matmul", ("gemm", "nvjet", "sm90_", "cutlass", "xmma")),
+             ("sort/search", ("sort", "Sort", "radix", "searchsorted")),
+             ("gather/index", ("index", "Index", "gather", "Gather")),
+             ("elementwise/copy", ("elementwise", "copy", "Copy", "Cat",
+                                   "Functor", "reduce")))
+    out = {}
+    for us, _, key in rows:
+        kind = next((k for k, words in kinds
+                     if any(w in key for w in words)), "other")
+        out[kind] = out.get(kind, 0.0) + us / 1e3
+    return out
+
+
+def moe_stage_ms(model, tokens) -> dict:
+    """Device ms of each stage of the last MoE layer at the prefill shape
+    (CUDA events, the layer's own input caught by a hook): the router,
+    the dispatch (sort, slots), the gather of the expert inputs, the
+    expert products, the combine and the shared experts."""
+    import torch
+    from repro_torch.models.transformer import prefill_step
+    moe = moe_modules(model)[-1]
+    seen = []
+    handle = moe.register_forward_hook(lambda m, i, o: seen.append(i[0]))
+    prefill_step(model, tokens)
+    handle.remove()
+    x = seen[0]
+    xf = x.reshape(-1, x.shape[-1])
+    r = moe.route(xf)
+    disp = moe.dispatch(r.experts)
+    xin = moe.gather(xf, disp)
+    y = moe.expert_ffn(xin)
+    stages = {"route": lambda: moe.route(xf),
+              "dispatch": lambda: moe.dispatch(r.experts),
+              "gather": lambda: moe.gather(xf, disp),
+              "experts": lambda: moe.expert_ffn(xin),
+              "combine": lambda: moe.combine(y, r.gates, disp.rows)}
+    if moe.shared is not None:
+        stages["shared"] = lambda: moe.shared(x)
+    out = {k: cuda_time_ms(fn, 5) for k, fn in stages.items()}
+    out["cap"] = disp.cap
+    del seen, x, xf, r, disp, xin, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_lm(dev, arch: str) -> dict:
+    """One MoE model at full width in bf16 from seed 0 on the card:
+    ``prefill_step`` at LM_BATCH x LM_SEQ with the kernels (twice: the
+    same bits) and the plain versions against an f32 yardstick, the
+    routing flips between them, the serve loop with the kernels and
+    teacher-forced with the plain versions, and decode after the prompt
+    against ``prefill_step`` with no drops. Returns the main path's
+    launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.layers.moe import no_drops
+    from repro_torch.models.transformer import init_params, prefill_step
+    t_arch = time.perf_counter()
+    cfg = get_config(arch).model_cfg
+    L, mla = cfg.n_layers, cfg.attn_kind == "mla"
+    n_moe = L - cfg.first_dense_layers
+    model = init_params(cfg, seed=SEED, device=dev)
+    n = sum(p.numel() for p in model.parameters())
+    extra = L * cfg.kv_lora_rank if mla else 0
+    log(f"  {cfg.name}: {n} parameters ({cfg.n_params} by the config"
+        f"{f' + {extra} MLA latent-norm gains' if mla else ''}), "
+        f"{str(cfg.dtype)[6:]}, {L} layers ({n_moe} MoE: {cfg.n_experts} "
+        f"experts top-{cfg.top_k}, {cfg.n_shared} shared), "
+        f"{'MLA' if mla else 'GQA'} attention; initialised on the card in "
+        f"{time.perf_counter() - t_arch:.1f} s, "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    # the config's count (the reference's) takes int() of L times the
+    # mean FFN size over the layers: at most L - 1 short
+    if not 0 <= n - cfg.n_params - extra < L:
+        raise RuntimeError(f"{n} parameters, the config says "
+                           f"{cfg.n_params} + {extra}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=gen,
+                           device=dev)
+    norms = (3 if mla else 2) * L + 1
+    none = {"flash_attention": 0, "rmsnorm": 0, "flash_attention_bwd": 0,
+            "rmsnorm_bwd": 0}
+    launches = dict(none)
+    moes = moe_modules(model)
+
+    runs, routes = {}, {}
+    for tag, impl in (("kernels", "auto"), ("plain", "ref")):
+        prefill_step(model, tokens[:, :128], attn_impl=impl,
+                     norm_impl=impl)                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_lm_counts()
+        routes[tag] = []
+        with routing_recorded(moes, routes[tag]):
+            t0 = time.perf_counter()
+            runs[tag] = prefill_step(model, tokens, attn_impl=impl,
+                                     norm_impl=impl)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        log(f"  prefill_step {LM_BATCH} x {LM_SEQ} ({tag}): {dt:.4f} s "
+            f"(routing recorded), {LM_BATCH * LM_SEQ / dt:.0f} tok/s, peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        got = expect_counts(f"prefill ({tag})",
+                            {**none, "flash_attention": L, "rmsnorm": norms}
+                            if tag == "kernels" else none)
+        if tag == "kernels":
+            for k, c in got.items():
+                launches[k] += c
+    logits = runs["kernels"]
+    if logits.shape != (LM_BATCH, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"prefill logits {tuple(logits.shape)} not finite "
+                           "or of the wrong shape")
+    # timed without hooks, and the repeat must give the same bits
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = prefill_step(model, tokens)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    log(f"  prefill_step {LM_BATCH} x {LM_SEQ} (kernels, again): {dt:.4f} s, "
+        f"{LM_BATCH * LM_SEQ / dt:.0f} tok/s; bit-equal to the first: "
+        f"{torch.equal(again, logits)}")
+    if not torch.equal(again, logits):
+        raise RuntimeError("a repeat of the same prefill gives other logits")
+
+    # the yardstick: the same weights in f32, the plain versions, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    by_layer = arch in F32_BY_LAYER
+    routes["f32"] = []
+    t0 = time.perf_counter()
+    ref32 = prefill_f32(model, tokens, routes["f32"], by_layer)
+    torch.cuda.synchronize()
+    how = "block by block" if by_layer else "an f32 copy of the model"
+    log(f"  f32 yardstick ({how}): {time.perf_counter() - t0:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    floor = float((runs["plain"].float() - ref32).abs().max())
+    err32 = float((logits.float() - ref32).abs().max())
+    tol = LM_TOL_FLOORS * floor
+    log(f"  routing flips, kernels vs plain (bf16): "
+        f"{routing_flips(routes['kernels'], routes['plain'])}")
+    log(f"  routing flips, plain bf16 vs f32: "
+        f"{routing_flips(routes['plain'], routes['f32'])}")
+    log(f"  prefill logits vs the f32 model: plain bf16 {floor:.4g} (the "
+        f"bf16 floor), kernels bf16 {err32:.4g}; tolerance "
+        f"{LM_TOL_FLOORS} x floor = {tol:.4g}")
+    del routes
+    if not err32 <= tol:
+        raise RuntimeError(f"prefill with the kernels is {err32} from the "
+                           f"f32 model, more than {tol}")
+    compare_logits("prefill last-position logits, kernels vs plain",
+                   logits, runs["plain"], tol)
+    del ref32, runs
+    torch.cuda.empty_cache()
+    log(f"  ({time.perf_counter() - t_arch:.1f} s in)")
+
+    # where a prefill's device time goes
+    kinds = device_ms_by_kind(device_profile(
+        "prefill_step (kernels)", lambda: prefill_step(model, tokens)))
+    total = sum(kinds.values())
+    log(f"  prefill device ms by kind of kernel (the profile above): "
+        + ", ".join(f"{k} {v:.3f} ({100 * v / max(total, 1e-9):.1f}%)"
+                    for k, v in sorted(kinds.items(), key=lambda x: -x[1]))
+        + f"; total {total:.3f}")
+    with torch.inference_mode():
+        stages = moe_stage_ms(model, tokens)
+    cap = stages.pop("cap")
+    moe_ms = sum(stages.values())
+    dispatch_ms = sum(stages[k] for k in ("route", "dispatch", "gather",
+                                          "combine"))
+    log(f"  one MoE layer at the prefill shape (cap {cap}), device ms by "
+        "CUDA events: " + ", ".join(f"{k} {v:.4f}"
+                                    for k, v in stages.items())
+        + f"; layer total {moe_ms:.4f}, x {n_moe} layers = "
+        f"{moe_ms * n_moe:.3f} ms: dispatch (route, dispatch, gather, "
+        f"combine) {dispatch_ms * n_moe:.3f} ms, expert products "
+        f"{stages['experts'] * n_moe:.3f} ms; flash "
+        f"{kinds.get('flash_attention', 0.0):.3f} ms a prefill")
+    log(f"  ({time.perf_counter() - t_arch:.1f} s in)")
+
+    # the serve loop, kernels, then teacher-forced with the plain versions
+    prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=gen, device=dev)
+    serve_loop(model, prompt, 2, SERVE_CACHE)          # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_lm_counts()
+    out = serve_loop(model, prompt, SERVE_STEPS, SERVE_CACHE)
+    steps = SERVE_PROMPT + SERVE_STEPS
+    log(f"  serve loop batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, decode "
+        f"{SERVE_STEPS}, cache {SERVE_CACHE} (kernels): "
+        f"{out['seconds']:.4f} s, {SERVE_BATCH * steps / out['seconds']:.0f}"
+        f" tok/s, peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+        f"GiB; sample {out['tokens'][0][:16].tolist()}")
+    got = expect_counts("serve loop (kernels)",
+                        {**none, "rmsnorm": norms * steps})
+    for k, c in got.items():
+        launches[k] += c
+    zero_lm_counts()
+    plain = serve_loop(model, prompt, SERVE_STEPS, SERVE_CACHE,
+                       norm_impl="ref", forced=out["tokens"])
+    log(f"  serve loop teacher-forced (plain): {plain['seconds']:.4f} s, "
+        f"{SERVE_BATCH * steps / plain['seconds']:.0f} tok/s")
+    expect_counts("serve loop (plain)", none)
+    compare_logits(f"serve loop, all {steps} steps' logits, kernels vs plain",
+                   out["logits"], plain["logits"], tol)
+    del plain
+    log(f"  ({time.perf_counter() - t_arch:.1f} s in)")
+    # decode after the prompt == prefill_step, with nothing dropped in
+    # either (a decode step of SERVE_BATCH tokens has cap 1 otherwise)
+    with no_drops(model):
+        nd = serve_loop(model, prompt, 1, SERVE_CACHE)
+        pre = prefill_step(model, prompt)
+    compare_logits("decode logits after the prompt vs prefill_step "
+                   "(capacity_factor = E / k)",
+                   nd["logits"][SERVE_PROMPT - 1], pre, tol)
+    # a short window: the profiler's host-side records of an MoE decode
+    # step (~40 ops a layer) take it tens of seconds to sum at 16 + 8
+    log(f"  ({time.perf_counter() - t_arch:.1f} s in)")
+    device_profile("serve loop, 4 + 4 steps (kernels)",
+                   lambda: serve_loop(model, prompt[:, :4], 4, SERVE_CACHE))
+    del model, out, nd, pre
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  {arch}: {time.perf_counter() - t_arch:.1f} s")
+    return launches
+
+
+def phase_moe(dev) -> dict:
+    """Phase 10: each of MOE_ARCHS in turn (:func:`phase_moe_lm`), freed
+    before the next. Returns the main path's launches summed."""
+    import torch
+    t_phase = time.perf_counter()
+    launches = {}
+    for arch in MOE_ARCHS:
+        for k, c in phase_moe_lm(dev, arch).items():
+            launches[k] = launches.get(k, 0) + c
+    torch.cuda.empty_cache()
+    log(f"  phase 10: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -2028,6 +2566,13 @@ def main() -> int:
         log(f"  [{lib}] {hgmma} HGMMA instructions in the SASS")
         if hgmma == 0:
             raise RuntimeError(f"the {lib} library has no HGMMA instruction")
+    bodies = hgmma_by_body(subprocess.run(
+        [str(cuobjdump), "-sass", str(build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True).stdout)
+    log(f"  [flash_attention] HGMMA by bf16 body <NBQK, NBV>: {bodies}")
+    if len(bodies) != 6 or not all(bodies.values()):
+        raise RuntimeError(f"a bf16 body of the flash library has no HGMMA "
+                           f"instruction: {bodies}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2042,6 +2587,9 @@ def main() -> int:
     log("phase 2: kernels vs plain versions on the card")
     kern = phase_kernels(dev, bandwidth)
     kern.update(phase_lm_kernels(dev, bandwidth, peak))
+    mla = phase_mla_flash(dev, bandwidth, peak)
+    kern["flash_attention"]["max_abs_err"] = max(
+        kern["flash_attention"]["max_abs_err"], mla["max_abs_err"])
     kern.update(phase_lm_bwd_kernels(dev, bandwidth, peak))
     log("phase 3: mid-size exactness")
     g_mid, tri_mid, mid_runs = phase_mid(dev)
@@ -2054,6 +2602,10 @@ def main() -> int:
     # enumeration phases
     log("phase 9: LM training at full width (qwen2-0.5b)")
     for k, c in phase_train(dev).items():
+        launches[k] += c
+    log("phase 10: MoE and MLA serving at full width "
+        f"({', '.join(MOE_ARCHS)})")
+    for k, c in phase_moe(dev).items():
         launches[k] += c
     log("phase 6: out-of-core B-BENU (host row store + device row cache)")
     with gc_paused():
@@ -2089,13 +2641,18 @@ def main() -> int:
                    "src/repro/kernels/flash_attention.py:68"),
                "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm_bwd.cu",
                                "src/repro/kernels/rmsnorm.py:25")}
+    kern["flash_attention"]["at_mla_shape"] = {
+        k: mla[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                            "bound_by", "shape")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": kern[name]["max_abs_err"],
                 "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"],
                 "bound_ms": kern[name]["bound_ms"],
                 "bound_by": kern[name].get("bound_by", "bytes"),
-                "library_ms": kern[name].get("library_ms")}
+                "library_ms": kern[name].get("library_ms"),
+                **({"at_mla_shape": kern[name]["at_mla_shape"]}
+                   if "at_mla_shape" in kern[name] else {})}
                for name, (src, replaces) in sources.items()]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,9 @@
 ``list_archs()``.
 
 Counterpart of ``repro/configs/__init__.py`` for the architectures the
-port runs so far: the dense GQA LMs. The others of the reference's
-registry raise ``NotImplementedError`` naming the slice that brings them.
+port runs so far: the five LMs (dense GQA, MoE, MLA). The others of the
+reference's registry raise ``NotImplementedError`` naming the slice that
+brings them.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
 _MODULES = {
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "qwen2-0.5b": "qwen2_0_5b",
     "qwen2.5-3b": "qwen2_5_3b",
@@ -20,8 +23,6 @@ _MODULES = {
 
 #: the reference's other architectures -> the later slice of the port
 _LATER = {
-    "deepseek-v2-lite-16b": "the MoE/MLA slice",
-    "granite-moe-3b-a800m": "the MoE/MLA slice",
     "meshgraphnet": "the GNN slice",
     "pna": "the GNN slice",
     "egnn": "the GNN slice",

@@ -104,28 +104,46 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _leaves(tree: Mapping[str, Any], prefix: str = ""):
+    """(dotted name, leaf) of a nested dict of arrays, depth first."""
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
 def lm_state_dict_from_numpy(params: Mapping[str, Any],
                              cfg) -> Dict[str, torch.Tensor]:
     """The port's ``Transformer`` state_dict from the JAX package's LM
     params (the pytree of ``np.asarray`` leaves of
-    ``repro.models.transformer.init_params``). The stacked
-    ``dense_layers`` leaves ``[L, ...]`` are split per layer; a tied
-    ``embed`` stays the one ``embed`` entry, which the head reads
-    transposed."""
-    if "moe_layers" in params or cfg.moe or cfg.attn_kind == "mla":
-        raise NotImplementedError("MoE and MLA params come with the MoE/MLA "
-                                  "slice of the port")
+    ``repro.models.transformer.init_params``). The stacked layer leaves
+    ``[L, ...]`` are split per layer into ``layers.{i}``: the
+    ``dense_layers`` stack first (an MoE model's dense prefix, or every
+    layer of a dense model), then ``moe_layers`` (router, experts, shared
+    experts). Attention leaves (GQA's, or MLA's with ``norm_ckv``) keep
+    their names under ``attn.``, FFN leaves under ``ffn.``, and the block
+    norms become ``norm1.weight`` / ``norm2.weight``. A tied ``embed``
+    stays the one ``embed`` entry, which the head reads transposed."""
     sd = {"embed": _tensor(params["embed"]),
           "final_norm.weight": _tensor(params["final_norm"])}
     if not cfg.tie_embeddings:
         sd["lm_head"] = _tensor(params["lm_head"])
-    stack = params["dense_layers"]
-    leaves = {"norm1.weight": stack["norm1"], "norm2.weight": stack["norm2"]}
-    leaves.update({f"attn.{k}": v for k, v in stack["attn"].items()})
-    leaves.update({f"ffn.{k}": v for k, v in stack["ffn"].items()})
-    for i in range(cfg.n_layers):
-        for name, leaf in leaves.items():
-            sd[f"layers.{i}.{name}"] = _tensor(np.asarray(leaf)[i])
+    norms = {"norm1": "norm1.weight", "norm2": "norm2.weight"}
+    i = 0
+    for stack_name in ("dense_layers", "moe_layers"):
+        if stack_name not in params:
+            continue
+        leaves = [(norms.get(name, name), np.asarray(leaf))
+                  for name, leaf in _leaves(params[stack_name])]
+        n = leaves[0][1].shape[0]
+        for j in range(n):
+            for name, leaf in leaves:
+                sd[f"layers.{i + j}.{name}"] = _tensor(leaf[j])
+        i += n
+    if i != cfg.n_layers:
+        raise ValueError(f"{i} stacked layers for a config of "
+                         f"{cfg.n_layers}")
     return sd
 
 

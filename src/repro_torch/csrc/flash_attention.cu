@@ -9,10 +9,12 @@
 //
 // Semantics (repro_torch/kernels/ref.py flash_attention, within a float
 // tolerance: the softmax is taken online, tile by tile):
-//   q [B, Hq, Tq, d], k and v [B, Hkv, Tk, d], out [B, Hq, Tq, d], each a
-//   strided view (element strides for the first three dimensions, the
-//   last one contiguous), one dtype (f32 or bf16); f32 math;
-//   out = softmax(scale * q k^T + mask) v.
+//   q [B, Hq, Tq, dqk], k [B, Hkv, Tk, dqk], v [B, Hkv, Tk, dv], out
+//   [B, Hq, Tq, dv], each a strided view (element strides for the first
+//   three dimensions, the last one contiguous), one dtype (f32 or bf16);
+//   f32 math; out = softmax(scale * q k^T + mask) v. MLA attends with
+//   dqk = 192 (128 nope + 64 rope) and dv = 128; the other models with
+//   dqk = dv.
 //   - GQA: q head i of batch b reads kv head i / (Hq / Hkv) of batch b.
 //   - causal: query row r sees keys kpos <= r + (Tk - Tq) (aligned
 //     bottom-right, so a decode step's rows see the whole prefix).
@@ -20,7 +22,7 @@
 //     Pallas kernel: a row that sees no key (causal with Tk < Tq) comes out
 //     as the mean of V over all Tk keys, not NaN.
 //   - ragged tails: any Tq and Tk; keys past Tk take no part at all.
-//   - d <= 128, a multiple of 8.
+//   - dqk <= 192 and dv <= 128, each a multiple of 8.
 //   - optional lse [B, Hq, Tq] f32 (contiguous), the row's log-sum-exp of
 //     the scaled, masked scores (m + log(l) in natural units), which the
 //     backward (flash_attention_bwd.cu) reads; a row that sees no key gets
@@ -29,9 +31,9 @@
 //     weights). Written where each body normalises its rows, once a row;
 //     a null pointer (the serving path) skips it.
 //
-// Bound on this card: operations at the model's shapes (Tq = Tk = 4096,
-// d = 64: 4*d flops per visible (query, key) pair against 2*d*2 bytes of
-// K/V per key), far above the bytes' time.
+// Bound on this card: operations at the models' shapes (Tq = Tk = 4096:
+// 2*(dqk + dv) flops per visible (query, key) pair against (dqk + dv)*2
+// bytes of K/V per key), far above the bytes' time.
 //
 // bf16 design (the model's path), for the tensor cores:
 //   - one block of two warpgroups per (q head, 128-row q tile); warpgroup
@@ -44,10 +46,14 @@
 //     soon as both warpgroups have released it, so one tile is in flight
 //     while the warpgroups compute the other. Rows past T and columns past
 //     d arrive zero-filled, so ragged tails and d < 64 need no special
-//     loads; a d <= 64 tile is one [128 rows][64 columns] box, d <= 128
-//     two. Shared memory is swizzled by 128 bytes (one bf16 row of a box).
+//     loads; a tile is NBQK (q and k: dqk <= 64 * NBQK) or NBV (v: dv <=
+//     64 * NBV) [128 rows][64 columns] boxes. Shared memory is swizzled by
+//     128 bytes (one bf16 row of a box). At MLA's (192, 128) the q tile
+//     (3 boxes), two K stages (6) and two V stages (4) take 208 KiB, 209
+//     with the 1 KiB alignment pad, under the 227 KiB a block may use.
 //   - S = Q K^T: wgmma m64n128k16, Q and K K-major from shared memory,
-//     f32 accumulators in registers.
+//     f32 accumulators in registers; dqk / 16 k-steps (12 at dqk = 192),
+//     so the registers are those of dqk = 128.
 //   - online softmax on the accumulator fragment (a row lives in the four
 //     lanes of a quad: two shuffles for its max); exp2f with
 //     scale * log2(e) folded in; the row sums stay per thread and are
@@ -55,7 +61,7 @@
 //     reach the causal diagonal or past Tk.
 //   - O += P V: P is packed to bf16 pairs in registers, which is already
 //     wgmma's A-operand layout, and V is the B operand, MN-major, from
-//     shared memory: wgmma m64n64k16 per 64 output columns.
+//     shared memory: wgmma m64n64k16 per 64 output columns (NBV of them).
 //   - causal blocks stop after the last kv tile that any of their rows
 //     sees, but only when every row of the tile sees at least one key
 //     (q0 + Tk - Tq >= 0): a fully masked tile adds exactly nothing to a
@@ -65,7 +71,8 @@
 // f32 inputs (not on the model's path) keep a scalar body: one block of
 // 256 threads per (q head, 64-row q tile) stages q and each 64-key K and V
 // tile in shared memory as f32 and does the products with f32 FMAs (the
-// tensor cores' TF32 would not hold f32 tolerances).
+// tensor cores' TF32 would not hold f32 tolerances). Its shared memory is
+// dynamic (145 KiB at (192, 128)), opted in past 48 KiB.
 //
 // The PTX wrappers, descriptors and the tensor-map encoding live in
 // hopper.cuh, shared with the backward (the build hashes it with this
@@ -117,16 +124,17 @@ __device__ __forceinline__ void load_tile(float* s, int ld,
   }
 }
 
-template <int DMAX>
+// DQK >= dqk and DV >= dv: the widths of the shared-memory tiles
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse,
                  Strides sq, Strides sk, Strides sv, Strides so, int Hq,
-                 int Hkv, int Tq, int Tk, int d, int causal, float scale,
-                 int n_qtiles) {
-  constexpr int LQ = DMAX + 1, LK = DMAX + 1, LV = DMAX, LP = kBK + 1;
-  constexpr int NO = DMAX / 16;               // output columns per thread
+                 int Hkv, int Tq, int Tk, int dqk, int dv, int causal,
+                 float scale, int n_qtiles) {
+  constexpr int LQ = DQK + 1, LK = DQK + 1, LV = DV, LP = kBK + 1;
+  constexpr int NO = DV / 16;                 // output columns per thread
   extern __shared__ float smem[];
   float* sQ = smem;                           // [kBQ][LQ]
   float* sK = sQ + kBQ * LQ;                  // [kBK][LK]
@@ -145,8 +153,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int offset = Tk - Tq;
 
   for (int idx = threadIdx.x; idx < kBK * LV; idx += kThreads)
-    sV[idx] = 0.f;                            // columns d..DMAX stay zero
-  load_tile(sQ, LQ, qh, sq.t, q0, Tq, d);
+    sV[idx] = 0.f;                            // columns dv..DV stay zero
+  load_tile(sQ, LQ, qh, sq.t, q0, Tq, dqk);
 
   int kend = Tk;
   if (causal && q0 + offset >= 0) {
@@ -165,8 +173,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = 0; k0 < kend; k0 += kBK) {
     __syncthreads();                          // last tile's sK/sV/sP done
-    load_tile(sK, LK, kh, sk.t, k0, Tk, d);
-    load_tile(sV, LV, vh, sv.t, k0, Tk, d);
+    load_tile(sK, LK, kh, sk.t, k0, Tk, dqk);
+    load_tile(sV, LV, vh, sv.t, k0, Tk, dv);
     __syncthreads();
 
     float s[4][4];
@@ -174,7 +182,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int r = 0; r < 4; ++r)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
-    for (int dd = 0; dd < d; ++dd) {
+    for (int dd = 0; dd < dqk; ++dd) {
       float qv[4], kv[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) qv[r] = sQ[(ty + 16 * r) * LQ + dd];
@@ -240,19 +248,19 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
       const int c = tx + 16 * j;
-      if (c < d) oh[row * so.t + c] = acc[r][j] * inv;
+      if (c < dv) oh[row * so.t + c] = acc[r][j] * inv;
     }
   }
 }
 
-cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       void* out, float* lse, const Strides* st, int B,
-                       int Hq, int Hkv, int Tq, int Tk, int d, int causal,
-                       float scale, cudaStream_t stream) {
-  const int dmax = d <= 64 ? 64 : 128;
+template <int DQK, int DV>
+cudaError_t launch_f32_dims(const void* q, const void* k, const void* v,
+                            void* out, float* lse, const Strides* st, int B,
+                            int Hq, int Hkv, int Tq, int Tk, int dqk, int dv,
+                            int causal, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
-      (kBQ * (dmax + 1) + kBK * (dmax + 1) + kBK * dmax + kBQ * (kBK + 1));
-  auto kernel = dmax == 64 ? flash_f32_kernel<64> : flash_f32_kernel<128>;
+      (kBQ * (DQK + 1) + kBK * (DQK + 1) + kBK * DV + kBQ * (kBK + 1));
+  auto kernel = flash_f32_kernel<DQK, DV>;
   cudaError_t err = cudaFuncSetAttribute(      // above 48 KB: opt in
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -264,8 +272,26 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, st[0],
       st[1],
-      st[2], st[3], Hq, Hkv, Tq, Tk, d, causal, scale, n_qtiles);
+      st[2], st[3], Hq, Hkv, Tq, Tk, dqk, dv, causal, scale, n_qtiles);
   return cudaGetLastError();
+}
+
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       void* out, float* lse, const Strides* st, int B,
+                       int Hq, int Hkv, int Tq, int Tk, int dqk, int dv,
+                       int causal, float scale, cudaStream_t stream) {
+#define FLASH_F32(DQK, DV)                                                  \
+  if (dqk <= DQK && dv <= DV)                                               \
+    return launch_f32_dims<DQK, DV>(q, k, v, out, lse, st, B, Hq, Hkv, Tq,  \
+                                    Tk, dqk, dv, causal, scale, stream);
+  FLASH_F32(64, 64)
+  FLASH_F32(128, 64)
+  FLASH_F32(64, 128)
+  FLASH_F32(128, 128)
+  FLASH_F32(192, 64)
+  FLASH_F32(192, 128)
+#undef FLASH_F32
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -280,24 +306,25 @@ constexpr int kBoxCols = 64;              // bf16 columns per box (128 B)
 constexpr uint32_t kBoxBytes = 128 * kBoxCols * 2;   // [128][64] bf16
 constexpr uint32_t kWGRowsBytes = 64 * kBoxCols * 2; // a warpgroup's 64 rows
 
-// NB boxes of 64 columns: d <= 64 * NB
-template <int NB>
+// boxes of 64 columns: NBQK for q and k (dqk <= 64 * NBQK), NBV for v
+// (dv <= 64 * NBV)
+template <int NBQK, int NBV>
 __global__ void __launch_bounds__(2 * kWG, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                   const __grid_constant__ CUtensorMap map_k,
                   const __grid_constant__ CUtensorMap map_v,
                   __nv_bfloat16* __restrict__ out,
                   float* __restrict__ lse, Strides so, int BH,
-                  int Hq, int Hkv, int Tq, int Tk, int d, int causal,
-                  float scale_log2, int n_qtiles) {
+                  int Hq, int Hkv, int Tq, int Tk, int dqk, int dv,
+                  int causal, float scale_log2, int n_qtiles) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];
   // boxes must start on 1024 bytes: the swizzle pattern repeats there
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t sQ = base;                              // [NB] boxes
-  const uint32_t sK = sQ + NB * kBoxBytes;               // [kStages][NB]
-  const uint32_t sV = sK + kStages * NB * kBoxBytes;     // [kStages][NB]
+  const uint32_t sQ = base;                              // [NBQK] boxes
+  const uint32_t sK = sQ + NBQK * kBoxBytes;             // [kStages][NBQK]
+  const uint32_t sV = sK + kStages * NBQK * kBoxBytes;   // [kStages][NBV]
   const uint32_t bar_q = smem_u32(&bars[0]);
   const uint32_t bar_full = smem_u32(&bars[1]);          // [kStages]
   const uint32_t bar_empty = smem_u32(&bars[1 + kStages]);
@@ -317,7 +344,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   if (causal && q0 + offset >= 0)
     kend = min(Tk, min(q0 + kTQ, Tq) + offset);
   const int n_tiles = (kend + kTK - 1) / kTK;
-  constexpr uint32_t kStageBytes = 2 * NB * kBoxBytes;    // K and V
+  constexpr uint32_t kStageBytes = (NBQK + NBV) * kBoxBytes;  // K and V
 
   if (tid == 0) {
     mbar_init(bar_q, 1);
@@ -332,17 +359,18 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     const uint32_t bar = bar_full + 8 * s;
     mbar_expect_tx(bar, kStageBytes);
 #pragma unroll
-    for (int x = 0; x < NB; ++x) {
-      tma_load_4d(sK + (s * NB + x) * kBoxBytes, &map_k, bar, x * kBoxCols,
-                  tile * kTK, kvi, b);
-      tma_load_4d(sV + (s * NB + x) * kBoxBytes, &map_v, bar, x * kBoxCols,
-                  tile * kTK, kvi, b);
-    }
+    for (int x = 0; x < NBQK; ++x)
+      tma_load_4d(sK + (s * NBQK + x) * kBoxBytes, &map_k, bar,
+                  x * kBoxCols, tile * kTK, kvi, b);
+#pragma unroll
+    for (int x = 0; x < NBV; ++x)
+      tma_load_4d(sV + (s * NBV + x) * kBoxBytes, &map_v, bar,
+                  x * kBoxCols, tile * kTK, kvi, b);
   };
   if (tid == 0) {
-    mbar_expect_tx(bar_q, NB * kBoxBytes);
+    mbar_expect_tx(bar_q, NBQK * kBoxBytes);
 #pragma unroll
-    for (int x = 0; x < NB; ++x)
+    for (int x = 0; x < NBQK; ++x)
       tma_load_4d(sQ + x * kBoxBytes, &map_q, bar_q, x * kBoxCols, q0, i, b);
     for (int t = 0; t < kStages && t < n_tiles; ++t) load_kv(t, t);
   }
@@ -354,9 +382,9 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   const int row0 = q0 + 64 * wg + 16 * warp + lane / 4;
   const int col0 = 2 * (lane % 4);
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[NB][32];
+  float o[NBV][32];
 #pragma unroll
-  for (int x = 0; x < NB; ++x)
+  for (int x = 0; x < NBV; ++x)
 #pragma unroll
     for (int r = 0; r < 32; ++r) o[x][r] = 0.f;
   float s[64];
@@ -369,18 +397,18 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     const uint32_t parity = (j / kStages) & 1;
     mbar_wait(bar_full + 8 * st, parity);
 
-    // S = Q K^T over the d columns in steps of 16
+    // S = Q K^T over the dqk columns in steps of 16
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
-    for (int x = 0; x < NB; ++x)
+    for (int x = 0; x < NBQK; ++x)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        if (x * kBoxCols + kk * 16 >= d) continue;
+        if (x * kBoxCols + kk * 16 >= dqk) continue;
         const uint64_t da = smem_desc(
             sQ + x * kBoxBytes + wg * kWGRowsBytes + kk * 32, 16, 1024);
         const uint64_t db = smem_desc(
-            sK + (st * NB + x) * kBoxBytes + kk * 32, 16, 1024);
+            sK + (st * NBQK + x) * kBoxBytes + kk * 32, 16, 1024);
         wgmma_m64n128_ss(s, da, db, x + kk > 0);
       }
     wgmma_commit();
@@ -426,7 +454,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
       l[h2] += p;
     }
 #pragma unroll
-    for (int x = 0; x < NB; ++x)
+    for (int x = 0; x < NBV; ++x)
 #pragma unroll
       for (int r = 0; r < 32; ++r) o[x][r] *= alpha[(r >> 1) & 1];
 
@@ -438,21 +466,22 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int e = 0; e < 4; ++e)
         pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
 #pragma unroll
-    for (int x = 0; x < NB; ++x) fence_regs(o[x]);
+    for (int x = 0; x < NBV; ++x) fence_regs(o[x]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
-      for (int x = 0; x < NB; ++x) {
-        if (x * kBoxCols >= d) continue;
+      for (int x = 0; x < NBV; ++x) {
+        if (x * kBoxCols >= dv) continue;
         const uint64_t db = smem_desc(
-            sV + (st * NB + x) * kBoxBytes + kk * 16 * 128, kBoxBytes, 1024);
+            sV + (st * NBV + x) * kBoxBytes + kk * 16 * 128, kBoxBytes,
+            1024);
         wgmma_m64n64_rs(o[x], pa[kk], db);
       }
     wgmma_commit();
     wgmma_wait0();
 #pragma unroll
-    for (int x = 0; x < NB; ++x) fence_regs(o[x]);
+    for (int x = 0; x < NBV; ++x) fence_regs(o[x]);
 
     // both warpgroups done with this stage: refill it with tile j + 2
     if (wtid == 0) mbar_arrive(bar_empty + 8 * st);
@@ -479,61 +508,73 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     l[h2] = 1.f / (l[h2] == 0.f ? 1.f : l[h2]);
   }
 #pragma unroll
-  for (int x = 0; x < NB; ++x)
+  for (int x = 0; x < NBV; ++x)
 #pragma unroll
     for (int r = 0; r < 32; r += 2) {
       const int h2 = (r >> 1) & 1;
       const int row = row0 + 8 * h2;
       const int c = x * kBoxCols + 8 * (r >> 2) + col0;
-      if (row < Tq && c < d) {
+      if (row < Tq && c < dv) {
         *reinterpret_cast<__nv_bfloat162*>(oh + row * so.t + c) =
             __floats2bfloat162_rn(o[x][r] * l[h2], o[x][r + 1] * l[h2]);
       }
     }
 }
 
-template <int NB>
+template <int NBQK, int NBV>
 cudaError_t launch_bf16_nb(const CUtensorMap& mq, const CUtensorMap& mk,
                            const CUtensorMap& mv, void* out, float* lse,
                            const Strides& so, int B, int Hq, int Hkv,
-                           int Tq, int Tk, int d, int causal, float scale,
-                           cudaStream_t stream) {
-  const size_t smem = 1024 + static_cast<size_t>(NB) * kBoxBytes *
-                                 (1 + 2 * kStages);
+                           int Tq, int Tk, int dqk, int dv, int causal,
+                           float scale, cudaStream_t stream) {
+  // the q tile, kStages K tiles and kStages V tiles, and the 1 KiB pad
+  const size_t smem = 1024 + static_cast<size_t>(kBoxBytes) *
+                                 (NBQK * (1 + kStages) + NBV * kStages);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_bf16_kernel<NBQK, NBV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int n_qtiles = (Tq + kTQ - 1) / kTQ;
   const long long bh = static_cast<long long>(B) * Hq;
   const long long blocks = bh * n_qtiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  flash_bf16_kernel<NB><<<static_cast<unsigned>(blocks), 2 * kWG, smem,
-                          stream>>>(
+  flash_bf16_kernel<NBQK, NBV><<<static_cast<unsigned>(blocks), 2 * kWG,
+                                 smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, so,
-      static_cast<int>(bh), Hq, Hkv, Tq, Tk, d, causal,
+      static_cast<int>(bh), Hq, Hkv, Tq, Tk, dqk, dv, causal,
       scale * 1.4426950408889634f, n_qtiles);
   return cudaGetLastError();
 }
 
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, float* lse, const Strides* st, int B,
-                        int Hq, int Hkv, int Tq, int Tk, int d, int causal,
-                        float scale, cudaStream_t stream) {
+                        int Hq, int Hkv, int Tq, int Tk, int dqk, int dv,
+                        int causal, float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  cudaError_t err = encode_map(&mq, q, B, Hq, Tq, d, st[0]);
+  cudaError_t err = encode_map(&mq, q, B, Hq, Tq, dqk, st[0]);
   if (Tk == 0) {               // no kv tile is read: any valid map will do
     mk = mv = mq;
   } else {
-    if (err == cudaSuccess) err = encode_map(&mk, k, B, Hkv, Tk, d, st[1]);
-    if (err == cudaSuccess) err = encode_map(&mv, v, B, Hkv, Tk, d, st[2]);
+    if (err == cudaSuccess)
+      err = encode_map(&mk, k, B, Hkv, Tk, dqk, st[1]);
+    if (err == cudaSuccess) err = encode_map(&mv, v, B, Hkv, Tk, dv, st[2]);
   }
   if (err != cudaSuccess) return err;
-  if (d <= 64)
-    return launch_bf16_nb<1>(mq, mk, mv, out, lse, st[3], B, Hq, Hkv, Tq,
-                             Tk, d, causal, scale, stream);
-  return launch_bf16_nb<2>(mq, mk, mv, out, lse, st[3], B, Hq, Hkv, Tq, Tk, d,
-                           causal, scale, stream);
+  const int nbqk = (dqk + kBoxCols - 1) / kBoxCols;
+  const int nbv = (dv + kBoxCols - 1) / kBoxCols;
+#define FLASH_BF16(NBQK, NBV)                                               \
+  if (nbqk == NBQK && nbv == NBV)                                           \
+    return launch_bf16_nb<NBQK, NBV>(mq, mk, mv, out, lse, st[3], B, Hq,    \
+                                     Hkv, Tq, Tk, dqk, dv, causal, scale,   \
+                                     stream);
+  FLASH_BF16(1, 1)
+  FLASH_BF16(2, 2)
+  FLASH_BF16(1, 2)
+  FLASH_BF16(2, 1)
+  FLASH_BF16(3, 1)
+  FLASH_BF16(3, 2)
+#undef FLASH_BF16
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -545,21 +586,21 @@ extern "C" const char* error_string(int err) {
 // dtype: 0 = f32, 1 = bf16. `strides` holds 12 element strides: (batch,
 // head, row) of q, k, v and out in that order; the last dimension of each
 // is contiguous. `lse` is a contiguous [B, Hq, Tq] f32 buffer for the
-// rows' log-sum-exp, or null. Needs d <= 128 with d % 8 == 0 and
-// Hq % Hkv == 0, and for
-// bf16 16-byte aligned bases and strides (the wrapper checks). Launches on
-// `stream` of `device` and returns the launch's cudaError_t (0 on
-// success). Does not synchronise.
+// rows' log-sum-exp, or null. Needs dqk <= 192 and dv <= 128, each a
+// multiple of 8, and Hq % Hkv == 0, and for bf16 16-byte aligned bases
+// and strides (the wrapper checks). Launches on `stream` of `device` and
+// returns the launch's cudaError_t (0 on success). Does not synchronise.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
-                                      int B,
-                                      int Hq, int Hkv, int Tq, int Tk, int d,
+                                      int B, int Hq, int Hkv, int Tq, int Tk,
+                                      int dqk, int dv,
                                       const long long* strides, int causal,
                                       float scale, int dtype, int device,
                                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (d <= 0 || d > 128 || d % 8 != 0 || Hkv <= 0 || Hq % Hkv != 0)
+  if (dqk <= 0 || dqk > 192 || dqk % 8 != 0 || dv <= 0 || dv > 128 ||
+      dv % 8 != 0 || Hkv <= 0 || Hq % Hkv != 0)
     return cudaErrorInvalidValue;
   if (B == 0 || Hq == 0 || Tq == 0) return cudaSuccess;
   Strides st[4];
@@ -568,9 +609,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_f32(q, k, v, out, static_cast<float*>(lse), st, B, Hq,
-                      Hkv, Tq, Tk, d, causal, scale, s);
+                      Hkv, Tq, Tk, dqk, dv, causal, scale, s);
   if (dtype == 1)
     return launch_bf16(q, k, v, out, static_cast<float*>(lse), st, B, Hq,
-                       Hkv, Tq, Tk, d, causal, scale, s);
+                       Hkv, Tq, Tk, dqk, dv, causal, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -44,12 +44,11 @@ SIGNATURES: Dict[str, Tuple[str, List[type]]] = {
     #  grid, device, stream): the launch plan of kernels/rmsnorm.py
     "rmsnorm": ("rmsnorm_launch", [_P, _P, _P, _I, _I, _F, _I, _I, _I, _I,
                                    _I, _I, _I, _P]),
-    # (q, k, v, out, lse, B, Hq, Hkv, Tq, Tk, d, strides, causal, scale,
-    #  dtype, device, stream); strides: 12 int64, (batch, head, row) of q,
-    #  k, v, out; lse: [B, Hq, Tq] f32 or null
+    # (q, k, v, out, lse, B, Hq, Hkv, Tq, Tk, dqk, dv, strides, causal,
+    #  scale, dtype, device, stream); strides: 12 int64, (batch, head, row)
+    #  of q, k, v, out; lse: [B, Hq, Tq] f32 or null
     "flash_attention": ("flash_attention_launch",
-                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _I,
-                         _F, _I, _I, _P]),
+                        [_P] * 5 + [_I] * 7 + [_LL, _I, _F, _I, _I, _P]),
     # (q, k, v, out, dout, lse, D, dq, dk, dv, B, Hq, Hkv, Tq, Tk, d,
     #  strides, causal, scale, dtype, device, stream); strides: 24 int64,
     #  (batch, head, row) of q, k, v, out, dout, dq, dk, dv; D: a scratch

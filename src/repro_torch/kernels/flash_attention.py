@@ -6,10 +6,11 @@ work is bound by operations (``4*d`` flops per visible query-key pair).
 For bf16 the kernel runs both products on the tensor cores (``wgmma``),
 with K and V tiles brought in by TMA into a two-stage ring in shared
 memory, one block per (q head, 128-row q tile); f32 inputs keep a scalar
-body. It reads each q head's KV head by the GQA map itself and takes
-strided ``[B, H, T, d]`` views, so a caller holding ``[B, T, H, d]``
-activations passes their transposes without a copy (see the source's
-header). Its plain version is :func:`repro_torch.kernels.ref.flash_attention`.
+body. q and k may be wider than v (MLA: ``dqk`` 192, ``dv`` 128). It
+reads each q head's KV head by the GQA map itself and takes strided
+``[B, H, T, d]`` views, so a caller holding ``[B, T, H, d]`` activations
+passes their transposes without a copy (see the source's header). Its
+plain version is :func:`repro_torch.kernels.ref.flash_attention`.
 
 Training adds an optional ``lse`` output of the forward and the backward
 kernel ``csrc/flash_attention_bwd.cu`` (the port's own: the Pallas kernel
@@ -20,7 +21,7 @@ bf16 operands, f32 sums) with Q/dO or K/V tiles brought in by TMA: a
 dk/dv kernel per 128 keys and a dq kernel per 128 queries that recomputes
 S and dP; f32 inputs keep f32 FMAs on shared-memory tiles. Both are
 deterministic (no atomics: dk and dv sum the GQA group's q heads inside
-one block).
+one block). The backward takes ``dqk == dv <= 128`` only.
 """
 
 from __future__ import annotations
@@ -42,6 +43,11 @@ bwd_launches = 0
 
 #: TMA's alignment, in bytes, of a tensor's base address and of its strides
 ALIGN = 16
+#: the forward's widest q/k and v rows (``csrc/flash_attention.cu``: three
+#: and two 64-column boxes of the bf16 body)
+MAX_DQK, MAX_DV = 192, 128
+#: the backward's widest rows (``csrc/flash_attention_bwd.cu``), equal
+MAX_D_BWD = 128
 #: the backward's scratch pads each (batch, head)'s rows to a multiple of
 #: this (``kQS`` in ``csrc/flash_attention_bwd.cu``: its bf16 body copies
 #: 64 rows of lse and D at a time)
@@ -94,19 +100,35 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
         _check_cuda(name, t, q.dtype)
     strides = [view_strides(n, t) for n, t in (("q", q), ("k", k),
                                                 ("v", v))]
-    b, hq, tq, d = q.shape
-    hkv = k.shape[1]
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+    b, hq, tq, dqk = q.shape
+    hkv, dv = k.shape[1], v.shape[3]
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != dqk:
         raise ValueError(f"k{tuple(k.shape)} and v{tuple(v.shape)} must be "
-                         f"[B, Hkv, Tk, d] for q{tuple(q.shape)}")
+                         f"[B, Hkv, Tk, dqk] and [B, Hkv, Tk, dv] for "
+                         f"q{tuple(q.shape)}")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
-    if d > 128 or d % 8:
-        raise ValueError(f"d={d}: the kernel takes d <= 128, a multiple "
+    if dqk > MAX_DQK or dqk % 8 or dv > MAX_DV or dv % 8 or dv == 0:
+        raise ValueError(f"dqk={dqk}, dv={dv}: the kernel takes dqk <= "
+                         f"{MAX_DQK} and dv <= {MAX_DV}, each a multiple "
                          "of 8")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must share one device")
     return strides
+
+
+def empty_like_q(q: torch.Tensor, dv: int) -> torch.Tensor:
+    """An uninitialised ``[B, H, T, dv]`` tensor laid out as
+    ``torch.empty_like(q)`` would lay out q's shape: its first three
+    dimensions in q's memory order (largest stride outermost), the last
+    contiguous. So a ``[B, H, T, d]`` view of ``[B, T, H, d]`` memory
+    gives a view of ``[B, T, H, dv]`` memory. Runs on any device."""
+    if dv == q.shape[3]:
+        return torch.empty_like(q)
+    order = sorted(range(3), key=lambda i: (-q.stride(i), i)) + [3]
+    shape = [q.shape[i] for i in order[:3]] + [dv]
+    out = torch.empty(shape, dtype=q.dtype, device=q.device)
+    return out.permute([order.index(i) for i in range(4)])
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -114,10 +136,10 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     strides = _check_qkv(q, k, v)
     b, hq, tq, d = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
+    hkv, tk, dv = k.shape[1], k.shape[2], v.shape[3]
     if scale is None:
         scale = d ** -0.5
-    out = torch.empty_like(q)
+    out = empty_like_q(q, dv)
     lse = torch.empty((b, hq, tq), dtype=torch.float32,
                       device=q.device) if with_lse else None
     if q.numel() == 0:
@@ -128,7 +150,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), b, hq, hkv, tq, tk, d, flat,
+        None if lse is None else lse.data_ptr(), b, hq, hkv, tq, tk, d, dv,
+        flat,
         int(bool(causal)), float(scale), build.dtype_code(q.dtype),
         q.device.index, stream)
     build.check(lib, err, "flash_attention")
@@ -139,14 +162,14 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True,
                          scale: Optional[float] = None) -> torch.Tensor:
-    """Attention on the card. q: [B, Hq, Tq, d]; k, v: [B, Hkv, Tk, d];
-    CUDA views of one dtype (f32 or bf16) on one device that
-    :func:`view_strides` accepts (not copied), with Hq a multiple of Hkv
-    and d <= 128 a multiple of 8 -> [B, Hq, Tq, d] in q's dtype, laid out
-    as ``torch.empty_like(q)`` lays it out (so a transposed
-    ``[B, T, H, d]`` q gives a transposed ``[B, T, H, d]`` output).
-    ``scale`` defaults to ``d ** -0.5``. Raises on any other input. The
-    serving path: no ``lse`` is written.
+    """Attention on the card. q: [B, Hq, Tq, dqk]; k: [B, Hkv, Tk, dqk];
+    v: [B, Hkv, Tk, dv]; CUDA views of one dtype (f32 or bf16) on one
+    device that :func:`view_strides` accepts (not copied), with Hq a
+    multiple of Hkv, dqk <= 192 and dv <= 128 each a multiple of 8 ->
+    [B, Hq, Tq, dv] in q's dtype, laid out as :func:`empty_like_q` lays
+    it out (so a transposed ``[B, T, H, dqk]`` q gives a transposed
+    ``[B, T, H, dv]`` output). ``scale`` defaults to ``dqk ** -0.5``.
+    Raises on any other input. The serving path: no ``lse`` is written.
     """
     return _forward(q, k, v, causal, scale, with_lse=False)[0]
 
@@ -172,7 +195,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                                         torch.Tensor]:
     """``(dq, dk, dv)`` on the card (``csrc/flash_attention_bwd.cu``) from
     the forward's inputs, its output and ``lse``, and the output's
-    gradient ``dout``. q, k, v and out take the forward's rules; ``dout``
+    gradient ``dout``. q, k, v and out take the forward's rules, with
+    k and v of one shape and ``d <= 128`` (``MAX_D_BWD``); ``dout``
     is read in place when :func:`view_strides` accepts it (autograd hands
     it over in out's layout) and made contiguous here otherwise. dq, dk
     and dv are laid out as ``torch.empty_like`` of q, k and v. The
@@ -181,6 +205,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     global bwd_launches
     strides = _check_qkv(q, k, v)
     b, hq, tq, d = q.shape
+    if v.shape != k.shape or d > MAX_D_BWD:
+        raise ValueError(f"the backward kernel takes k and v of one shape "
+                         f"with d <= {MAX_D_BWD}, got k{tuple(k.shape)} "
+                         f"and v{tuple(v.shape)}")
     hkv, tk = k.shape[1], k.shape[2]
     for name, t in (("out", out), ("dout", dout)):
         _check_cuda(name, t, q.dtype)

@@ -101,10 +101,12 @@ def fused_gather_intersect(cand: torch.Tensor, ids: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: Optional[float] = None,
                     impl: str = "auto") -> torch.Tensor:
-    """q: [B, Hq, Tq, d]; k, v: [B, Hkv, Tk, d] -> [B, Hq, Tq, d].
+    """q: [B, Hq, Tq, dqk]; k: [B, Hkv, Tk, dqk]; v: [B, Hkv, Tk, dv] ->
+    [B, Hq, Tq, dv].
 
     ``impl``: auto | cuda (csrc/flash_attention.cu: strided views with a
-    contiguous last dimension and 16-byte aligned strides, d <= 128) | ref
+    contiguous last dimension and 16-byte aligned strides, dqk <= 192 and
+    dv <= 128; its backward takes dqk == dv <= 128) | ref
     (the plain version; autograd differentiates it). When autograd
     records the call, ``cuda`` goes through ``FlashAttentionFn``, whose
     backward is csrc/flash_attention_bwd.cu. See

@@ -84,9 +84,11 @@ def _causal_mask(tq: int, tk: int, device) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: Optional[float] = None,
                     return_lse: bool = False):
-    """Attention in f32. q: [B, Hq, Tq, d]; k, v: [B, Hkv, Tk, d] ->
-    [B, Hq, Tq, d] in q's dtype; with ``return_lse`` also the row
-    log-sum-exp ``lse`` [B, Hq, Tq] f32 that the backward reads.
+    """Attention in f32. q: [B, Hq, Tq, dqk]; k: [B, Hkv, Tk, dqk]; v:
+    [B, Hkv, Tk, dv] -> [B, Hq, Tq, dv] in q's dtype (MLA attends with
+    ``dqk != dv``); with ``return_lse`` also the row log-sum-exp ``lse``
+    [B, Hq, Tq] f32 that the backward reads. ``scale`` defaults to
+    ``dqk ** -0.5``.
 
     GQA: Hq is a multiple of Hkv and q head ``i`` reads kv head
     ``i // (Hq // Hkv)`` (grouped, the cache is never expanded). Causal
@@ -104,7 +106,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row's weights ``1 / Tk``. The kernel writes the same value.
     """
     b, hq, tq, d = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
+    hkv, tk, dv = k.shape[1], k.shape[2], v.shape[3]
     if hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
     if scale is None:
@@ -116,7 +118,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = s.masked_fill(mask, NEG_INF)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bksd->bkgqd", w, v.float())
-    out = out.reshape(b, hq, tq, d).to(q.dtype)
+    out = out.reshape(b, hq, tq, dv).to(q.dtype)
     if not return_lse:
         return out
     lse = torch.logsumexp(s, dim=-1)
@@ -142,15 +144,16 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     dk and dv sum over the q heads of each kv head's group. A masked
     score has no gradient (the forward replaces it by a constant); a row
     that sees no key has ``lse = log(Tk)`` and reads its masked scores as
-    0, so it gives each key ``dv += dout / Tk`` and no dq, dk.
+    0, so it gives each key ``dv += dout / Tk`` and no dq, dk. v, out and
+    dout may be narrower than q and k (``dv != dqk``), as in the forward.
     """
     b, hq, tq, d = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
+    hkv, tk, dv = k.shape[1], k.shape[2], v.shape[3]
     g = hq // hkv
     if scale is None:
         scale = d ** -0.5
     qg = q.float().reshape(b, hkv, g, tq, d)
-    dog = dout.float().reshape(b, hkv, g, tq, d)
+    dog = dout.float().reshape(b, hkv, g, tq, dv)
     kf, vf = k.float(), v.float()
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, kf) * scale
     if causal:
@@ -159,7 +162,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         s = s.masked_fill(mask, NEG_INF).masked_fill(mask & none, 0.0)
     p = torch.exp(s - lse.float().reshape(b, hkv, g, tq, 1))
     dp = torch.einsum("bkgqd,bksd->bkgqs", dog, vf)
-    rows = (dog * out.float().reshape(b, hkv, g, tq, d)).sum(-1)
+    rows = (dog * out.float().reshape(b, hkv, g, tq, dv)).sum(-1)
     ds = p * (dp - rows[..., None])
     if causal:
         ds = ds.masked_fill(mask, 0.0)

@@ -4,6 +4,9 @@
         [--smoke] --batch 4 --prompt-len 16 --decode-steps 32 \\
         --cache-len 128 [--device cpu]
 
+``--arch`` takes the five LMs: qwen2-0.5b, qwen2.5-3b, phi4-mini-3.8b and
+the MoE models granite-moe-3b-a800m (GQA) and deepseek-v2-lite-16b (MLA).
+
 Counterpart of the LM branch of ``repro.launch.serve``: random weights
 from seed 0, a random prompt, token-by-token prefill through
 ``decode_step`` (exercising the cache), then greedy decode. Prints the

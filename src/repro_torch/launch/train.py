@@ -13,7 +13,10 @@ checkpoint. As in the reference's CLI, which passes no mesh,
 ``--grad-compression`` reaches the loop but changes nothing in this one
 process: the manual data-parallel branch needs ``run_training`` called
 with a process group in every rank. Runs on the card unless ``--device
-cpu`` is given, and raises without one. The recsys and GNN families come with later slices.
+cpu`` is given, and raises without one. The MoE and MLA models
+(granite-moe-3b-a800m, deepseek-v2-lite-16b) train on the CPU only: on
+the card they raise ``NotImplementedError`` until the MoE/MLA training
+slice. The recsys and GNN families come with later slices.
 """
 
 from __future__ import annotations
@@ -59,7 +62,9 @@ def main(argv=None):
         raise SystemExit(f"family {spec.family}: use launch/enumerate.py")
     dev = resolve_device(args.device)
 
-    from ..models.transformer import decay_mask, init_params, loss_fn
+    from ..models.transformer import (check_trainable, decay_mask,
+                                      init_params, loss_fn)
+    check_trainable(cfg, dev)
     stream = LMStream(vocab=cfg.vocab, seq_len=args.seq,
                       global_batch=args.batch)
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None

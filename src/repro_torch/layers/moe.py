@@ -1,0 +1,185 @@
+"""Mixture-of-Experts FFN: top-k routing with sort-based capacity dispatch.
+
+Counterpart of ``repro/layers/moe.py`` (``moe_params`` / ``moe_ffn``),
+with its parameter names, shapes and semantics:
+
+    1. f32 router logits -> softmax -> top-k experts per token, the k
+       gates normalised to sum to 1; the Switch aux loss
+       ``w * E * sum_e f_e * p_e``;
+    2. the (token, choice) assignments, token-major, stably sorted by
+       expert; an assignment's slot in its expert is its rank minus the
+       expert's first rank, and slots at or past the capacity
+       ``cap = int(max(1, round(n_tok * k / E * capacity_factor)))``
+       (Python's ``round``: half to even) are dropped (the token keeps
+       its residual path);
+    3. an ``[E, cap]`` slot table of token ids, ``n_tok`` (a zero row)
+       where a slot is empty; the tokens gathered to ``[E, cap, D]`` and
+       the per-expert SwiGLU as batched matrix products (``torch.bmm``,
+       as the reference leaves its einsums to XLA);
+    4. the combine, which differs in method from the reference's
+       scatter-add but not in result: each token gathers its k
+       assignments' expert rows, each times its gate in the activation
+       dtype (the reference's rounding point), and sums them over the k
+       choices **in f32**, cast once to the activation dtype. No atomics:
+       a repeat gives the same bits. (The reference scatter-adds in the
+       activation dtype, in an order XLA picks.)
+
+Shared experts (DeepSeek-MoE) run as a dense SwiGLU of width
+``d_ff * n_shared`` on every token and are added after the combine.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .common import dense_init, swish
+from .mlp import SwiGLU
+
+
+def capacity(n_tok: int, top_k: int, n_experts: int,
+             capacity_factor: float) -> int:
+    """Slots per expert, as the reference computes them: on a Python
+    float, so ``round`` takes a tie (x.5) to the even integer."""
+    return int(max(1, round(n_tok * top_k / n_experts * capacity_factor)))
+
+
+class Routing(NamedTuple):
+    """The router's choice for ``n_tok`` tokens: ``gates`` [n_tok, k] f32
+    (normalised), ``experts`` [n_tok, k] int64 (descending probability)
+    and ``probs`` [n_tok, E] f32."""
+    gates: torch.Tensor
+    experts: torch.Tensor
+    probs: torch.Tensor
+
+
+class Dispatch(NamedTuple):
+    """Where the assignments go: ``slot_tok`` [E, cap] int64 token ids
+    (``n_tok`` where empty) and ``rows`` [n_tok, k] int64, each
+    assignment's row of the flattened ``[E * cap]`` expert outputs
+    (``E * cap``, a zero row, where it was dropped)."""
+    slot_tok: torch.Tensor
+    rows: torch.Tensor
+    cap: int
+
+
+class MoE(nn.Module):
+    """``router [D, E]`` (f32), ``w_gate`` / ``w_up [E, D, F]``,
+    ``w_down [E, F, D]`` and, with ``n_shared > 0``, ``shared`` (a
+    :class:`SwiGLU` of width ``F * n_shared``), in the reference's
+    layout. ``capacity_factor`` is a plain attribute read at each call."""
+
+    def __init__(self, d_model: int, n_experts: int, d_ff: int,
+                 n_shared: int, top_k: int, capacity_factor: float,
+                 dtype: torch.dtype, gen: torch.Generator,
+                 aux_loss_weight: float = 0.01):
+        super().__init__()
+        self.top_k, self.capacity_factor = top_k, capacity_factor
+        self.aux_loss_weight = aux_loss_weight
+        e = n_experts
+        self.router = nn.Parameter(dense_init(gen, (d_model, e),
+                                              torch.float32))
+        self.w_gate = nn.Parameter(dense_init(gen, (e, d_model, d_ff),
+                                              dtype))
+        self.w_up = nn.Parameter(dense_init(gen, (e, d_model, d_ff), dtype))
+        self.w_down = nn.Parameter(dense_init(gen, (e, d_ff, d_model),
+                                              dtype))
+        self.shared = SwiGLU(d_model, d_ff * n_shared, dtype, gen) \
+            if n_shared > 0 else None
+
+    def route(self, xf: torch.Tensor) -> Routing:
+        """Route the rows of ``xf`` [n_tok, D]: f32 logits, softmax, top-k
+        and the gates normalised over the k choices."""
+        probs = torch.softmax(xf.float() @ self.router, dim=-1)
+        gates, experts = torch.topk(probs, self.top_k, dim=-1)
+        return Routing(gates / gates.sum(dim=-1, keepdim=True), experts,
+                       probs)
+
+    def dispatch(self, experts: torch.Tensor) -> Dispatch:
+        """The slot table and each assignment's row for ``experts``
+        [n_tok, k]. The assignments, token-major, are sorted stably by
+        expert; no host synchronisation (a dropped assignment's write
+        goes to a spare entry that is cut off)."""
+        n_tok, k = experts.shape
+        e = self.router.shape[1]
+        cap = capacity(n_tok, k, e, self.capacity_factor)
+        flat = experts.reshape(-1)
+        order = torch.sort(flat, stable=True).indices
+        se = flat[order]
+        first = torch.searchsorted(se, se, side="left")
+        slot = torch.arange(n_tok * k, device=flat.device) - first
+        keep = slot < cap
+        dest = torch.where(keep, se * cap + slot, e * cap)
+        slot_tok = torch.full((e * cap + 1,), n_tok, dtype=torch.long,
+                              device=flat.device)
+        slot_tok[dest] = torch.where(keep, order // k, n_tok)
+        rows = torch.empty_like(dest)
+        rows[order] = dest                  # order is a permutation
+        return Dispatch(slot_tok[:e * cap].view(e, cap),
+                        rows.view(n_tok, k), cap)
+
+    def aux_loss(self, r: Routing) -> torch.Tensor:
+        """Switch load balance: ``w * E * sum_e mean_prob_e *
+        mean_count_e`` with the count of each expert among a token's k
+        choices."""
+        e = r.probs.shape[1]
+        counts = F.one_hot(r.experts, e).sum(dim=1).float().mean(dim=0)
+        return self.aux_loss_weight * e * (r.probs.mean(dim=0)
+                                           * counts).sum()
+
+    def gather(self, xf: torch.Tensor, disp: Dispatch) -> torch.Tensor:
+        """The expert inputs ``[E, cap, D]``: the rows of ``xf``
+        [n_tok, D] by the slot table, zeros in empty slots."""
+        e, cap = disp.slot_tok.shape
+        xpad = torch.cat([xf, xf.new_zeros((1, xf.shape[1]))])
+        return xpad[disp.slot_tok.reshape(-1)].view(e, cap, -1)
+
+    def expert_ffn(self, xin: torch.Tensor) -> torch.Tensor:
+        """Each expert's SwiGLU on its ``[cap, D]`` slots, as batched
+        products -> ``[E * cap + 1, D]``, the last row zero (a dropped
+        assignment's)."""
+        h = swish(torch.bmm(xin, self.w_gate)) * torch.bmm(xin, self.w_up)
+        y = torch.bmm(h, self.w_down)
+        return torch.cat([y.flatten(0, 1), y.new_zeros((1, y.shape[2]))])
+
+    def combine(self, y: torch.Tensor, gates: torch.Tensor,
+                rows: torch.Tensor) -> torch.Tensor:
+        """``[n_tok, D]``: each token's k expert rows of ``y``, each times
+        its gate in y's dtype, summed over the k choices in f32 and cast
+        once to y's dtype. Deterministic (a gather and a reduction, no
+        atomics)."""
+        yk = y[rows] * gates.to(y.dtype)[..., None]     # [n_tok, k, D]
+        return yk.sum(dim=1, dtype=torch.float32).to(y.dtype)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x [B, T, D] -> (out [B, T, D] in x's dtype, aux f32 scalar)."""
+        b, t, d = x.shape
+        xf = x.reshape(b * t, d)
+        r = self.route(xf)
+        disp = self.dispatch(r.experts)
+        y = self.expert_ffn(self.gather(xf, disp))
+        out = self.combine(y, r.gates, disp.rows).view(b, t, d)
+        if self.shared is not None:
+            out = out + self.shared(x)
+        return out, self.aux_loss(r)
+
+
+@contextlib.contextmanager
+def no_drops(model: nn.Module) -> Iterator[nn.Module]:
+    """``model`` with ``capacity_factor = E / k`` in every :class:`MoE`
+    layer while the context is open, the config's factor again after it:
+    the capacity is then ``n_tok``, so no assignment drops and a decode
+    step routes each token as a prefill of the same tokens does."""
+    moes = [m for m in model.modules() if isinstance(m, MoE)]
+    old = [m.capacity_factor for m in moes]
+    for m in moes:
+        m.capacity_factor = m.router.shape[1] / m.top_k
+    try:
+        yield model
+    finally:
+        for m, cf in zip(moes, old):
+            m.capacity_factor = cf

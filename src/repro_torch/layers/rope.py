@@ -1,7 +1,7 @@
 """Rotary position embeddings (RoPE), NeoX halves.
 
-Counterpart of ``repro/layers/rope.py`` (the MLA split comes with the
-MoE/MLA slice).
+Counterpart of ``repro/layers/rope.py``. MLA (decoupled RoPE) rotates
+only the ``rope`` slice of each head, by calling :func:`apply_rope` on it.
 """
 
 from __future__ import annotations

@@ -1,15 +1,25 @@
-"""Decoder-only transformer LM: the dense GQA architectures of the port.
+"""Decoder-only transformer LM covering the five LM architectures.
 
-Counterpart of ``repro/models/transformer.py`` for the dense GQA models
-(qwen2-0.5b, qwen2.5-3b, phi4-mini-3.8b). MoE and MLA configs (granite,
-deepseek) raise ``NotImplementedError``: they come with the MoE/MLA slice.
+Counterpart of ``repro/models/transformer.py``:
 
-Layers run as a Python loop over a ``ModuleList`` (the reference scans
-stacked parameters; ``repro_torch.convert.lm_state_dict_from_numpy``
-splits its ``[L, ...]`` leaves per layer). Step functions:
+    phi4-mini-3.8b      dense, GQA(24/8)
+    qwen2-0.5b          dense, GQA(14/2), QKV bias
+    qwen2.5-3b          dense, GQA(16/2), QKV bias
+    deepseek-v2-lite    MoE (64 routed top-6 + 2 shared), MLA, 1 dense layer
+    granite-moe-3b      MoE (40 routed top-8), GQA(24/8)
 
-    forward        tokens [B, T] -> (logits [B, T, V], aux, caches)
-    loss_fn        mean next-token cross entropy of a batch (training)
+Layers run as a Python loop over one ``ModuleList``, ``layers.{i}``: the
+``first_dense_layers`` dense blocks of an MoE model first, then its MoE
+blocks (the reference scans two stacks of parameters, ``dense_layers``
+and ``moe_layers``; ``repro_torch.convert.lm_state_dict_from_numpy``
+splits their ``[L, ...]`` leaves per layer, the dense prefix first).
+Step functions:
+
+    forward        tokens [B, T] -> (logits [B, T, V], aux, caches); aux
+                   is the MoE layers' summed load-balance loss
+    loss_fn        mean next-token cross entropy + aux of a batch (training;
+                   MoE and MLA models on the CPU only, see
+                   :func:`check_trainable`)
     decay_mask     which parameters AdamW decays (the reference's layout)
     prefill_step   full-sequence causal forward through the flash kernel;
                    the head is applied to the last position only
@@ -45,10 +55,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.engine_torch import resolve_device
-from ..layers.attention import GQAAttention, init_gqa_cache
+from ..layers.attention import (GQAAttention, MLAAttention, init_gqa_cache,
+                                init_mla_cache)
 from ..layers.common import (RMSNorm, dense_init, embed_init,
                              softmax_cross_entropy)
 from ..layers.mlp import SwiGLU
+from ..layers.moe import MoE
 
 
 @dataclass(frozen=True)
@@ -132,33 +144,60 @@ class LMConfig:
         return int(L * (attn + ffn + 2 * d) + emb + d)
 
 
-def _check_supported(cfg: LMConfig) -> None:
-    if cfg.moe or cfg.attn_kind == "mla":
+def check_trainable(cfg: LMConfig, device) -> None:
+    """Raise ``NotImplementedError`` for an MoE or MLA model on the card:
+    their training comes with the MoE/MLA training slice (the flash
+    backward takes ``dqk == dv <= 128``, and their gradients are not yet
+    held against the reference). The CPU runs them."""
+    if (cfg.moe or cfg.attn_kind == "mla") and \
+            torch.device(device).type == "cuda":
         raise NotImplementedError(
-            f"{cfg.name}: MoE and MLA models come with the MoE/MLA slice of "
-            "the port; this one runs dense GQA models only")
+            f"{cfg.name}: training MoE and MLA models on the card comes "
+            "with the MoE/MLA training slice of the port")
 
 
 class Block(nn.Module):
-    """Pre-norm block: ``x + attn(norm1(x))``, then ``+ ffn(norm2(x))``."""
+    """Pre-norm block: ``x + attn(norm1(x))``, then ``+ ffn(norm2(x))``;
+    attention is MLA or GQA by ``cfg.attn_kind`` and the FFN an
+    :class:`~repro_torch.layers.moe.MoE` (``moe_layer``) or a SwiGLU."""
 
-    def __init__(self, cfg: LMConfig, gen: torch.Generator):
+    def __init__(self, cfg: LMConfig, gen: torch.Generator,
+                 moe_layer: bool = False):
         super().__init__()
         dev = gen.device
-        self.attn = GQAAttention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                                 cfg.d_head, cfg.qkv_bias, cfg.dtype, gen,
-                                 cfg.rope_theta)
-        self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, cfg.dtype, gen)
+        if cfg.attn_kind == "mla":
+            self.attn = MLAAttention(cfg.d_model, cfg.n_heads,
+                                     cfg.kv_lora_rank, cfg.qk_nope_dim,
+                                     cfg.qk_rope_dim, cfg.v_head_dim,
+                                     cfg.dtype, gen, cfg.rope_theta)
+        else:
+            self.attn = GQAAttention(cfg.d_model, cfg.n_heads,
+                                     cfg.n_kv_heads, cfg.d_head,
+                                     cfg.qkv_bias, cfg.dtype, gen,
+                                     cfg.rope_theta)
+        self.moe = moe_layer
+        self.ffn = MoE(cfg.d_model, cfg.n_experts, cfg.moe_d_ff,
+                       cfg.n_shared, cfg.top_k, cfg.capacity_factor,
+                       cfg.dtype, gen) if moe_layer else \
+            SwiGLU(cfg.d_model, cfg.d_ff, cfg.dtype, gen)
         self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype, dev)
         self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype, dev)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[Dict] = None, attn_impl: str = "auto",
-                norm_impl: str = "auto") -> torch.Tensor:
+                norm_impl: str = "auto"
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """-> (x [B, T, D], the block's aux loss; None for a dense FFN, so
+        a dense block launches nothing for it)."""
         h, _ = self.attn(self.norm1(x, impl=norm_impl), positions,
-                         cache=cache, attn_impl=attn_impl)
+                         cache=cache, attn_impl=attn_impl,
+                         norm_impl=norm_impl)
         x = x + h
-        return x + self.ffn(self.norm2(x, impl=norm_impl))
+        hin = self.norm2(x, impl=norm_impl)
+        if self.moe:
+            h, aux = self.ffn(hin)
+            return x + h, aux
+        return x + self.ffn(hin), None
 
 
 class Transformer(nn.Module):
@@ -169,12 +208,12 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: LMConfig, gen: torch.Generator):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         self.embed = nn.Parameter(embed_init(gen, (cfg.vocab, cfg.d_model),
                                              cfg.dtype))
-        self.layers = nn.ModuleList(Block(cfg, gen)
-                                    for _ in range(cfg.n_layers))
+        n_dense = cfg.first_dense_layers if cfg.moe else cfg.n_layers
+        self.layers = nn.ModuleList(Block(cfg, gen, moe_layer=i >= n_dense)
+                                    for i in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype,
                                   gen.device)
         self.lm_head = None if cfg.tie_embeddings else nn.Parameter(
@@ -184,28 +223,33 @@ class Transformer(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 caches: Optional[List[Dict]] = None,
                 attn_impl: str = "auto", norm_impl: str = "auto",
-                last_only: bool = False) -> torch.Tensor:
-        """tokens [B, T] -> logits [B, T, V] (``[B, 1, V]`` with
-        ``last_only``: the head on the last position alone, which is all
-        ``logits[:, -1]`` depends on)."""
+                last_only: bool = False
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """tokens [B, T] -> (logits [B, T, V], aux: the MoE layers' summed
+        load-balance loss, f32, or None for a dense model). ``last_only``
+        gives ``[B, 1, V]``: the head on the last position alone, which is
+        all ``logits[:, -1]`` depends on."""
         b, t = tokens.shape
         if positions is None:
             positions = torch.arange(t, device=tokens.device).expand(b, t)
         x = self.embed[tokens].to(self.cfg.dtype)
         remat = self.cfg.remat and caches is None and torch.is_grad_enabled()
+        aux = None
         for i, layer in enumerate(self.layers):
             if remat:
-                x = checkpoint(layer, x, positions, None, attn_impl,
-                               norm_impl, use_reentrant=False)
+                x, a = checkpoint(layer, x, positions, None, attn_impl,
+                                  norm_impl, use_reentrant=False)
             else:
-                x = layer(x, positions,
-                          None if caches is None else caches[i],
-                          attn_impl=attn_impl, norm_impl=norm_impl)
+                x, a = layer(x, positions,
+                             None if caches is None else caches[i],
+                             attn_impl=attn_impl, norm_impl=norm_impl)
+            if a is not None:
+                aux = a if aux is None else aux + a
         if last_only:
             x = x[:, -1:].contiguous()          # the norm kernel's layout
         x = self.final_norm(x, impl=norm_impl)
         head = self.embed.T if self.lm_head is None else self.lm_head
-        return x @ head
+        return x @ head, aux
 
 
 def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Transformer:
@@ -223,10 +267,12 @@ def forward(model: Transformer, tokens: torch.Tensor,
             norm_impl: str = "auto"
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[List[Dict]]]:
     """tokens [B, T] -> (logits [B, T, V], aux_loss, caches), as the
-    reference; aux is 0 for a dense model."""
-    logits = model(tokens, positions, caches, attn_impl=attn_impl,
-                   norm_impl=norm_impl)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    reference; aux (f32) is the MoE layers' summed load-balance loss, 0
+    for a dense model."""
+    logits, aux = model(tokens, positions, caches, attn_impl=attn_impl,
+                        norm_impl=norm_impl)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     return logits, aux, caches
 
 
@@ -237,7 +283,9 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
     model's device: ``(ce + aux, {"ce": ce, "aux": aux})`` with ``ce``
     the mean softmax cross entropy of the logits, as the reference's
     ``loss_fn``. Call it with autograd on (not under ``inference_mode``):
-    the kernels then run with their backward kernels."""
+    the kernels then run with their backward kernels. An MoE or MLA model
+    on the card raises (:func:`check_trainable`)."""
+    check_trainable(model.cfg, model.embed.device)
     logits, aux, _ = forward(model, batch["tokens"], attn_impl=attn_impl,
                              norm_impl=norm_impl)
     ce = softmax_cross_entropy(logits, batch["labels"])
@@ -258,9 +306,13 @@ def decay_mask(params: Mapping[str, torch.Tensor]) -> Dict[str, bool]:
 
 def init_caches(cfg: LMConfig, b: int, s_max: int, device=None
                 ) -> List[Dict]:
-    """One ``{k, v, length}`` cache per layer, ``[B, s_max, Hkv, dh]``."""
-    _check_supported(cfg)
+    """One cache per layer: GQA ``{k, v, length}`` of ``[B, s_max, Hkv,
+    dh]``, or MLA ``{c_kv, k_rope, length}`` of ``[B, s_max, r]`` and
+    ``[B, s_max, rope]``."""
     dev = resolve_device(device)
+    if cfg.attn_kind == "mla":
+        return [init_mla_cache(b, s_max, cfg.kv_lora_rank, cfg.qk_rope_dim,
+                               cfg.dtype, dev) for _ in range(cfg.n_layers)]
     return [init_gqa_cache(b, s_max, cfg.n_kv_heads, cfg.d_head, cfg.dtype,
                            dev) for _ in range(cfg.n_layers)]
 
@@ -275,7 +327,7 @@ def decode_step(model: Transformer, caches: List[Dict],
     b = tokens.shape[0]
     positions = torch.full((b, 1), position, dtype=torch.long,
                            device=tokens.device)
-    logits = model(tokens, positions, caches, norm_impl=norm_impl)
+    logits, _ = model(tokens, positions, caches, norm_impl=norm_impl)
     return logits[:, -1], caches
 
 
@@ -286,4 +338,4 @@ def prefill_step(model: Transformer, tokens: torch.Tensor,
     """Prefill forward: tokens [B, T] -> last-position logits [B, V] (cache
     population elided, as in the reference's step)."""
     return model(tokens, attn_impl=attn_impl, norm_impl=norm_impl,
-                 last_only=True)[:, -1]
+                 last_only=True)[0][:, -1]

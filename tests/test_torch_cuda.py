@@ -9,7 +9,8 @@ it runs on a machine with a CUDA build of torch alone:
 Tolerance 0 for the set intersections and counts (int32 set members).
 Flash attention takes strided ``[B, H, T, d]`` views (the GQA layer's
 transposes of ``[B, T, H, d]`` activations) and raises on views TMA
-cannot read.
+cannot read; q and k may be wider than v (MLA: 192 and 128, the smoke
+config's 48 and 32), with v a view of the layer's ``wkv_b`` product.
 RMSNorm: 1e-5 in f32 (another summation order), one bf16 ulp of the
 output in bf16 (one rounding), on both of the kernel's bodies and in a
 replayed CUDA graph. Flash attention: 2e-5 with f32 inputs (online
@@ -366,18 +367,99 @@ def test_flash_attention_on_strided_views(card, d, tq, tk, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dqk,dv", [(48, 32), (192, 128), (64, 64),
+                                    (128, 64), (64, 128), (192, 64)])
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,causal", [
+    (2, 16, 16, 256, 256, True),          # MLA's heads (no GQA)
+    (1, 6, 2, 1000, 1000, True),          # GQA, ragged tails
+    (1, 4, 2, 129, 700, True),            # decode offset
+    (1, 4, 4, 200, 77, True),             # rows that see no key
+    (2, 4, 1, 130, 70, False),            # not causal, ragged
+])
+@pytest.mark.parametrize("views", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_unequal_widths_vs_plain(card, dqk, dv, b, hq, hkv,
+                                                 tq, tk, causal, views,
+                                                 dtype):
+    """q and k ``dqk`` wide, v ``dv`` wide: equal to the plain version on
+    the same inputs. ``views``: as the MLA layer passes them, q and k
+    ``[B, H, T, d]`` views of ``[B, T, H, d]`` tensors and v a view of
+    the columns past ``dqk - 16`` of a ``[B, T, H, dqk - 16 + dv]``
+    product; the output keeps q's ``[B, T, H, *]`` memory order."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=card).manual_seed(dqk + dv + tq + tk)
+
+    def rand(h, t, d):
+        if views:
+            return torch.randn((b, t, h, d), generator=gen,
+                               device=card).to(dtype).transpose(1, 2)
+        return torch.randn((b, h, t, d), generator=gen,
+                           device=card).to(dtype)
+
+    q, k = rand(hq, tq, dqk), rand(hkv, tk, dqk)
+    if views:
+        nope = dqk - 16
+        v = rand(hkv, tk, nope + dv)[..., nope:]
+    else:
+        v = rand(hkv, tk, dv)
+    before = fa.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert fa.launches == before + 1 and got.dtype == dtype
+    assert got.shape == (b, hq, tq, dv)
+    assert got.transpose(1, 2).is_contiguous() == views
+    want = ref.flash_attention(q.float(), k.float(), v.float(),
+                               causal=causal)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want, rtol=0 if tol == 2e-2
+                               else tol, atol=tol)
+    if views:
+        same = fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), causal=causal)
+        torch.testing.assert_close(got.float(), same.float(), rtol=0,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_widths_past_its_limits(card):
+    """dqk past 192 or dv past 128 (or not a multiple of 8) raises; the
+    backward kernel takes dqk == dv <= 128 only."""
+    from repro_torch.kernels import flash_attention as fa
+
+    def z(*shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype, device=card)
+    # f32 rows of 12 and 20 keep 16-byte strides: the width check refuses
+    for dqk, dv, dtype in ((200, 128, torch.bfloat16),
+                           (192, 136, torch.bfloat16),
+                           (192, 12, torch.float32), (20, 64, torch.float32)):
+        with pytest.raises(ValueError, match="dqk"):
+            fa.flash_attention_cuda(z(1, 2, 8, dqk, dtype=dtype),
+                                    z(1, 2, 8, dqk, dtype=dtype),
+                                    z(1, 2, 8, dv, dtype=dtype))
+    q, k, v = z(1, 2, 8, 192), z(1, 2, 8, 192), z(1, 2, 8, 128)
+    out, lse = fa.flash_attention_lse_cuda(q, k, v)
+    with pytest.raises(ValueError, match="backward"):
+        fa.flash_attention_bwd_cuda(q, k, v, out, lse, out)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen2.5-3b",
-                                  "phi4-mini-3.8b"])
+                                  "phi4-mini-3.8b", "granite-moe-3b-a800m",
+                                  "deepseek-v2-lite-16b"])
 def test_smoke_lm_on_the_card_equals_the_cpu(card, arch):
     """prefill_step and a teacher-forced serve loop of the f32 smoke model
     on the card (the kernels) == the same weights on the CPU (the plain
-    versions); launch counts per forward and per decode step."""
+    versions); launch counts per forward and per decode step (MLA adds its
+    latent norm to each layer's two). The decode after the whole prompt
+    equals the prefill; for an MoE model with ``capacity_factor = E / k``
+    in every MoE layer, so that neither drops an assignment."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.layers.moe import no_drops
     from repro_torch.models import transformer as ttf
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(arch).smoke().model_cfg
+    norms = (3 if cfg.attn_kind == "mla" else 2) * cfg.n_layers + 1
     cpu = ttf.init_params(cfg, seed=0, device="cpu")
     gpu = ttf.Transformer(cfg, torch.Generator(device=card))
     gpu.load_state_dict(cpu.state_dict())
@@ -385,19 +467,21 @@ def test_smoke_lm_on_the_card_equals_the_cpu(card, arch):
         0, cfg.vocab, (2, 24)))
     fa.launches = rn.launches = 0
     got = ttf.prefill_step(gpu, toks.to(card))
-    assert (fa.launches, rn.launches) == (cfg.n_layers, 2 * cfg.n_layers + 1)
+    assert (fa.launches, rn.launches) == (cfg.n_layers, norms)
     torch.testing.assert_close(got.cpu(), ttf.prefill_step(cpu, toks),
                                rtol=2e-4, atol=2e-4)
     c_cpu = ttf.init_caches(cfg, 2, 24, device="cpu")
     c_gpu = ttf.init_caches(cfg, 2, 24, device=card)
-    for i in range(toks.shape[1]):
-        fa.launches = rn.launches = 0
-        lg, c_gpu = ttf.decode_step(gpu, c_gpu, toks[:, i:i + 1].to(card), i)
-        assert (fa.launches, rn.launches) == (0, 2 * cfg.n_layers + 1)
-        want, c_cpu = ttf.decode_step(cpu, c_cpu, toks[:, i:i + 1], i)
-        torch.testing.assert_close(lg.cpu(), want, rtol=2e-4, atol=2e-4)
-    torch.testing.assert_close(lg.cpu(), ttf.prefill_step(cpu, toks),
-                               rtol=2e-4, atol=2e-4)
+    with no_drops(cpu), no_drops(gpu):
+        for i in range(toks.shape[1]):
+            fa.launches = rn.launches = 0
+            lg, c_gpu = ttf.decode_step(gpu, c_gpu,
+                                        toks[:, i:i + 1].to(card), i)
+            assert (fa.launches, rn.launches) == (0, norms)
+            want, c_cpu = ttf.decode_step(cpu, c_cpu, toks[:, i:i + 1], i)
+            torch.testing.assert_close(lg.cpu(), want, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(lg.cpu(), ttf.prefill_step(cpu, toks),
+                                   rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.cuda

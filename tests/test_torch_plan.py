@@ -118,7 +118,9 @@ def test_sources_import_neither_jax_nor_repro():
         assert any(os.sep + sub + os.sep in p for p in paths), sub
     for mod in ("core/ref_engine.py", "core/baseline_join.py",
                 "core/engine_dist.py", "core/engine_sbenu_dist.py",
-                "distributed/rowstore.py"):
+                "distributed/rowstore.py", "layers/moe.py",
+                "configs/granite_moe_3b_a800m.py",
+                "configs/deepseek_v2_lite_16b.py"):
         assert any(p.endswith(os.sep + mod.replace("/", os.sep))
                    for p in paths), mod
     for p in paths:
@@ -144,10 +146,13 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    for mod in ("launch.enumerate", "launch.serve", "core.engine_torch",
+    for mod in ("launch.enumerate", "launch.serve", "launch.serve_ab",
+                "core.engine_torch",
                 "layers.attention", "layers.common", "layers.mlp",
-                "layers.rope", "models.transformer", "configs.qwen2_0_5b",
-                "configs.qwen2_5_3b", "configs.phi4_mini_3_8b",
+                "layers.rope", "layers.moe", "models.transformer",
+                "configs.qwen2_0_5b", "configs.qwen2_5_3b",
+                "configs.phi4_mini_3_8b", "configs.granite_moe_3b_a800m",
+                "configs.deepseek_v2_lite_16b",
                 "kernels.flash_attention", "kernels.rmsnorm"):
         assert f"repro_torch.{mod}" in mods
 
