@@ -10,7 +10,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    main path's widths and B >= 65,536 rows: bit-equal (tolerance 0, the
    values are int32 set members), with each kernel's time beside the plain
    version's and the bound (least time at the card's memory bandwidth);
-3. mid-size exactness on ``powerlaw(20_000, 8)``: ``torch``, ``torch-gpu``
+3. mid-size exactness on ``powerlaw(10_000, 8)``: ``torch``, ``torch-gpu``
    and (for the triangle and the 4-clique) the plain versions forced by
    explicit impl give identical counts and frontier sizes (and, for the
    house, match sets); one run with tiny capacities forces the adaptive
@@ -102,7 +102,38 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the serve loop as phase 5's, teacher-forced with the plain versions;
    decode after the prompt == ``prefill_step`` with ``capacity_factor =
    E / k`` (no drops: at the config's factor a 4-token decode step has
-   one slot an expert).
+   one slot an expert);
+11. MoE and MLA training at full width, after phase 10, under
+   ``torch.use_deterministic_algorithms(True)``, on ``LMStream`` 4 x
+   4096, one model at a time: granite-moe-3b-a800m at
+   ``MOE_TRAIN_LAYERS`` layers (all 32) and deepseek-v2-lite-16b cut to
+   its dense first layer and three MoE layers, bf16 with remat. A step's
+   loss, grad norm and every gradient with the kernels against the plain
+   versions, within ``LM_TOL_FLOORS`` x the plain bf16 step's distance
+   from the same weights in f32 (phase 9's yardstick, tensor by tensor),
+   all three on the kernel step's routing (``routing_fixed`` replays it,
+   recomputing the gates from each run's probabilities; the tokens whose
+   own top-k differs are logged as flips); the kernel step repeated gives
+   the same bits and launches exactly 2L flash forwards, L flash
+   backwards, 2nL + 1 rmsnorm forwards and nL + 1 backwards (n = 2 norms
+   a layer, 3 with MLA's latent norm). Then ``MOE_TRAIN_STEPS`` AdamW
+   steps with a checkpoint and a failed-and-resumed run that must equal
+   the uninterrupted one bit for bit (at ``MOE_RESTART_LAYERS``: 8 and 2
+   layers, checkpoints of ~8 and ~10 GiB), ``MOE_TIMED_STEPS`` steps at
+   full depth from seed 0 (tok/s, peak memory; the loss must fall) and a
+   profiled step (busy share, device time by kind of kernel, the flash
+   backward's share);
+12. BST (recsys) at full width (10^6 items), after phase 11: the serve
+   CLI's loop at 512 and 262,144 rows a batch (req/s), retrieval of one
+   user against 10^6 candidates in chunks sized from the bytes reckoned
+   in the run, training at 65,536 rows a step under deterministic
+   algorithms (a repeated step bit-equal, the loss falling, a checkpoint
+   and a failed-and-resumed run bit-exact, rows/s, a profiled step); the
+   CTRs, the retrieval logits, the loss and every gradient within
+   ``BST_TOL`` of an f64 CPU run of the same weights on
+   ``BST_CHECK_ROWS`` rows and candidates. BST runs no kernel of the
+   port (attention at d_head 4 stays plain matrix products, as in the
+   JAX package).
 
 Phase 1 also counts the HGMMA (``wgmma``) instructions in the SASS of
 both flash libraries, forward and backward (``cuobjdump``), and fails if
@@ -134,8 +165,15 @@ layer's views and at d = 128, each beside its bound. rmsnorm and
 host µs per call, medians of ``RMS_ROUNDS`` alternating rounds; the
 kernels line takes the device-only time. Phase 5 also requires every
 rmsnorm launch on the kernel's register body, and no backward launch.
-Phase 2 also holds the two backward kernels (``flash_attention_bwd``,
-``rmsnorm_bwd``: the port's own, the Pallas kernels have none) against
+Phase 2 also holds the flash backward at MLA's widths (q, k 192 and v
+128 on the layer's layouts, bf16 at deepseek's training shape and f32 at
+``MLA_F32_SEQ``, ragged, rows that see no key, the launcher's other
+unequal pairs) against its plain formulas, twice for equal bits, and
+times it beside its bound and SDPA's backward (``phase_mla_flash_bwd``);
+and the rmsnorm backward at the widths phase 11 trains (512, 1536, 2048,
+each on the register body). Phase 2 also holds the two backward kernels
+(``flash_attention_bwd``, ``rmsnorm_bwd``: the port's own, the Pallas
+kernels have none) against
 their plain backward formulas at the training shapes (flash: q [4, 14,
 4096, 64] as the layer's views in bf16 and f32, non-causal, rows that see
 no key, d = 128; rmsnorm: [16384, 896], an odd width, a wide row; the
@@ -192,6 +230,31 @@ TRAIN_STEPS, TRAIN_CKPT_EVERY = 6, 3
 # bf16) is taken block by block
 MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b")
 F32_BY_LAYER = ("deepseek-v2-lite-16b",)
+# phase 11: MoE and MLA training at full width on LMStream TRAIN_BATCH x
+# TRAIN_SEQ: the layers each model trains (deepseek-v2-lite-16b cut to its
+# dense first layer and three MoE layers: at 12 bytes a parameter in
+# training its 15.7 B take 188 GB; PERF.md section 4), and the layers of
+# its checkpoint/restart run, MOE_TRAIN_STEPS steps with a checkpoint
+# every MOE_TRAIN_CKPT_EVERY
+# (a checkpoint of granite's 32 layers, bf16 weights and f32 moments, is
+# 30.7 GiB and takes 47 s to write: the restart runs at fewer layers), and
+# AdamW's rate (at 1e-3 the first updates raise both models' loss from
+# random init)
+MOE_TRAIN_LAYERS = {"granite-moe-3b-a800m": 32, "deepseek-v2-lite-16b": 4}
+MOE_RESTART_LAYERS = {"granite-moe-3b-a800m": 8, "deepseek-v2-lite-16b": 2}
+MOE_TRAIN_STEPS, MOE_TRAIN_CKPT_EVERY, MOE_TIMED_STEPS = 3, 2, 4
+MOE_TRAIN_LR = 1e-4
+# phase 12: BST at full width (the config's 10^6 items, 10^5 user
+# features, d = 32) at the reference's recsys cells (configs/bst.py
+# SHAPES): timed serving batches, BST_TRAIN_STEPS training steps with a
+# checkpoint every BST_CKPT_EVERY; outputs and gradients held against an
+# f64 CPU run of the same weights on BST_CHECK_ROWS rows and candidates
+BST_SERVE_BATCHES = {512: 50, 262_144: 4}
+BST_TRAIN_STEPS, BST_CKPT_EVERY = 6, 3
+BST_CHECK_ROWS = 1024
+# f32 on the card against f64: sums of at most a few thousand products in
+# another order, each rounded to 24 bits
+BST_TOL = 1e-4
 # phase 2: flash attention at MLA's widths (q and k 128 nope + 64 rope, v
 # 128; deepseek's 16 heads), and the shorter T of its f32 check
 MLA_HEADS, MLA_NOPE, MLA_ROPE, MLA_V = 16, 128, 64, 128
@@ -203,16 +266,20 @@ MLA_F32_SEQ = 1024
 # alone moves them; two bf16 results, each that far from the f32 ones,
 # must agree within LM_TOL_FLOORS * floor
 LM_TOL_FLOORS = 2.0
-MID_N, MID_BATCH, MID_CAPS = 20_000, 64, (8192, 16384, 32768, 65536)
+# phase 3's mid-size graph (at 20,000 vertices its plain-version runs
+# alone took about two minutes of the script's time limit)
+MID_N, MID_BATCH, MID_CAPS = 10_000, 64, (8192, 16384, 32768, 65536)
 # rmsnorm and F.rms_norm are each timed as the median of this many rounds
 RMS_ROUNDS = 7
 # phase 6: the device row cache sized as the JAX gate sizes it
 OOC_CACHE_FRAC, OOC_HOT_FRAC = 0.12, 0.04
 # phase 7: (n, m_init, batch, steps) of the mid-size stream (the largest
 # at which the brute snapshot diff stays near 30 s) and the full stream
+# (at 10^6 vertices and 8 x 10^6 edges its host generation alone took
+# 107 s of the script's time limit)
 SBENU_PATTERNS = ("dtoy", "q1'", "q2'", "q3'", "q5'")
 SB_MID = (1000, 2000, 300, 3)
-SB_FULL = (1_000_000, 8_000_000, 100_000, 3)
+SB_FULL = (500_000, 4_000_000, 100_000, 3)
 SB_DELETE, SB_BATCH = 0.3, 4096
 # phase 8: the full-size dist triangle with no hot rows and with phase 6's
 # 4% of the rows replicated; the mid-size join patterns
@@ -260,6 +327,138 @@ def card_rate(table, name: str) -> float:
         if key in name:
             return rate
     raise RuntimeError(f"no rate known for card {name!r}")
+
+
+def phase_mla_flash_bwd(dev, bandwidth: float, peak: float) -> dict:
+    """The flash backward at MLA's widths (q and k 192, v 128) against its
+    plain backward formulas (``ref.flash_attention_backward`` in f32 on
+    the same inputs), with phase 2's tolerances (``phase_lm_bwd_kernels``:
+    ``1e-2 * max|want|`` in bf16, ``1e-4 * max|want|`` in f32): bf16 at
+    deepseek's training shape on the layer's layouts (q a head-major view,
+    k a concatenation of nope and the expanded rope, v a view of the
+    ``wkv_b`` product) and contiguous, non-causal, a ragged T with rows
+    that see no key; f32 at ``MLA_F32_SEQ`` and ragged; and the launcher's
+    other unequal pairs ((128, 64), (64, 128), (192, 64), GQA 6/2). Then
+    two calls at the training shape must give the same bits, and the
+    kernel is timed there beside its bound, the plain version and SDPA's
+    backward (which backends take ``Ev != E`` is logged)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    dqk, dv = MLA_NOPE + MLA_ROPE, MLA_V
+    scale = dqk ** -0.5
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def layer_qkv(b, t, dtype):
+        """q, k, v as ``MLAAttention`` hands them to the kernel."""
+        h = MLA_HEADS
+        q = rand((b, t, h, dqk), dtype).transpose(1, 2)
+        kv = rand((b, t, h, MLA_NOPE + dv), dtype)
+        rope = rand((b, t, 1, MLA_ROPE), dtype)
+        k = torch.cat([kv[..., :MLA_NOPE], rope.expand(b, t, h, MLA_ROPE)],
+                      dim=-1).transpose(1, 2)
+        return q, k, kv[..., MLA_NOPE:].transpose(1, 2)
+
+    def check(tag, q, k, v, causal, keep=False):
+        o, lse = fa.flash_attention_lse_cuda(q, k, v, causal, scale)
+        do = rand(o.shape, q.dtype)
+        got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, scale)
+        want = ref.flash_attention_backward(
+            q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+            causal, scale)
+        torch.cuda.synchronize()
+        rel = 1e-4 if q.dtype == torch.float32 else 1e-2
+        errs = [float((g.float() - w).abs().max()) for g, w in
+                zip(got, want)]
+        scales = [float(w.abs().max()) for w in want]
+        ok = all(e <= rel * sc for e, sc in zip(errs, scales)) and all(
+            g.shape == x.shape for g, x in zip(got, (q, k, v)))
+        log(f"  flash_attention_bwd {tag} {str(q.dtype)[6:]} causal="
+            f"{causal}: max_abs_err dq/dk/dv {[f'{e:.3g}' for e in errs]} "
+            f"of max {[f'{sc:.3g}' for sc in scales]} (tolerance {rel} x "
+            f"max): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"flash_attention_bwd disagrees with its "
+                               f"plain version at {tag}")
+        return (q, k, v, o, lse, do, max(errs)) if keep else None
+
+    b, h, t = LM_BATCH, MLA_HEADS, LM_SEQ
+    for dtype, tb, tt in ((torch.bfloat16, b, t),
+                          (torch.float32, b, MLA_F32_SEQ)):
+        check(f"MLA [{tb},{h},{tt}] (192, 128), the layer's layouts",
+              *layer_qkv(tb, tt, dtype), True)
+        check(f"MLA [{tb},{h},{tt}] (192, 128), contiguous",
+              rand((tb, h, tt, dqk), dtype), rand((tb, h, tt, dqk), dtype),
+              rand((tb, h, tt, dv), dtype), True)
+        check("MLA [2,16,700] (192, 128), views", *layer_qkv(2, 700, dtype),
+              False)
+        # Tq > Tk: the first rows see no key
+        check("MLA q[1,16,300] kv[1,16,200] (192, 128)",
+              rand((1, h, 300, dqk), dtype), rand((1, h, 200, dqk), dtype),
+              rand((1, h, 200, dv), dtype), True)
+        for pair in ((128, 64), (64, 128), (192, 64)):
+            check(f"q[1,6,1000] kv[1,2,1000] {pair}",
+                  rand((1, 6, 1000, pair[0]), dtype),
+                  rand((1, 2, 1000, pair[0]), dtype),
+                  rand((1, 2, 1000, pair[1]), dtype), True)
+    q, k, v, o, lse, do, worst = check(
+        f"MLA [{b},{h},{t}] (192, 128), the layer's layouts, again",
+        *layer_qkv(b, t, torch.bfloat16), True, keep=True)
+    a1 = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, True, scale)
+    a2 = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, True, scale)
+    if not all(torch.equal(x, y) for x, y in zip(a1, a2)):
+        raise RuntimeError("flash_attention_bwd is not deterministic at "
+                           "MLA's widths")
+    log("  flash_attention_bwd at MLA's widths: two calls, the same bits")
+    del a1, a2
+    split = kernel_times_ms(lambda: fa.flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, True, scale), 5)
+    log("  flash_attention_bwd at MLA's widths by kernel (device ms a call, "
+        "profiler): " + ", ".join(
+            f"{kernel_name(key)} {ms:.4f}"
+            for key, ms in sorted(split.items(), key=lambda x: -x[1])))
+    visible = t * (t + 1) // 2
+    # S, dK, dQ over dqk; dP, dV over dv
+    flops = 2 * b * h * visible * (3 * dqk + 2 * dv)
+    nbytes = 2 * (2 * b * h * t * dqk * 2 + b * h * t * dv * 4) \
+        + b * h * t * 4
+    bound_ms = max(flops / peak, nbytes / bandwidth) * 1e3
+    qc, kc, vc, oc, doc = (x.contiguous() for x in (q, k, v, o, do))
+    qs, ks, vs = (x.detach().requires_grad_() for x in (qc, kc, vc))
+    sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                          scale=scale)
+    res = dict(
+        ms=cuda_time_ms(lambda: fa.flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, True, scale), 5),
+        contiguous_ms=cuda_time_ms(lambda: fa.flash_attention_bwd_cuda(
+            qc, kc, vc, oc, lse, doc, True, scale), 5),
+        plain_ms=cuda_time_ms(lambda: ref.flash_attention_backward(
+            q, k, v, o, lse, do, True, scale), 2),
+        library_ms=cuda_time_ms(lambda: torch.autograd.grad(
+            sdpa, (qs, ks, vs), doc, retain_graph=True), 10),
+        bound_ms=bound_ms,
+        bound_by="operations" if flops / peak > nbytes / bandwidth
+        else "bytes", max_abs_err=worst,
+        shape=f"q,k [{b},{h},{t},{dqk}] v [{b},{h},{t},{dv}] bf16 causal, "
+              "the layer's layouts")
+    log(f"  flash_attention_bwd at MLA's shape ({res['shape']}): kernel "
+        f"{res['ms']:.4f} ms (contiguous {res['contiguous_ms']:.4f}), plain "
+        f"{res['plain_ms']:.4f} ms, SDPA backward (contiguous) "
+        f"{res['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({res['bound_by']}: {flops:.4g} flops, {nbytes} bytes), "
+        f"{100 * bound_ms / res['ms']:.1f}% of bound")
+    lib = kernel_times_ms(lambda: torch.autograd.grad(
+        sdpa, (qs, ks, vs), doc, retain_graph=True), 1)
+    log(f"  SDPA's backward at MLA's shape runs "
+        f"{sorted(kernel_name(key) for key in lib)}")
+    del q, k, v, o, lse, do, qc, kc, vc, oc, doc, qs, ks, vs, sdpa
+    torch.cuda.empty_cache()
+    return res
 
 
 def kernel_name(key: str) -> str:
@@ -1155,9 +1354,13 @@ def phase_lm_bwd_kernels(dev, bandwidth: float, peak: float) -> dict:
               "[B, T, H, d] views")
     del q, k, v, o, lse, do, qs, ks, vs, sdpa
 
-    # -- rmsnorm_bwd: the training rows, an odd width, a wide row
+    # -- rmsnorm_bwd: the training rows at qwen2's width and at the widths
+    # phase 11 trains (MLA's latent 512, granite's 1536, deepseek's 2048,
+    # each on the register body), an odd width, a wide row
     worst = 0.0
-    for rows, d in ((LM_BATCH * LM_SEQ, 896), (1000, 1001), (3, 8192)):
+    for rows, d in ((LM_BATCH * LM_SEQ, 896), (LM_BATCH * LM_SEQ, 512),
+                    (LM_BATCH * LM_SEQ, 1536), (LM_BATCH * LM_SEQ, 2048),
+                    (1000, 1001), (3, 8192)):
         for dtype in (torch.bfloat16, torch.float32):
             x = rand((rows, d), dtype) * 3
             g, gam = rand((rows, d), dtype), rand((d,), dtype)
@@ -1176,10 +1379,12 @@ def phase_lm_bwd_kernels(dev, bandwidth: float, peak: float) -> dict:
                                      ).all()))
                 errs.append(float(err.max()))
             if dtype == torch.bfloat16 and rows == LM_BATCH * LM_SEQ:
-                worst = max(errs)
+                worst = max(worst, *errs)
             tol = "1e-4 x max" if dtype == torch.float32 else \
                 "one bf16 ulp + 1e-6 x max"
             body = rn.rmsnorm_plan(rows, d, dtype, True).body
+            if rows == LM_BATCH * LM_SEQ and body != "register":
+                raise RuntimeError(f"rmsnorm_bwd [{rows}, {d}]: {body} body")
             log(f"  rmsnorm_bwd [{rows}, {d}] {str(dtype)[6:]} ({body} "
                 f"body): max_abs_err dx {errs[0]:.3g}, dgamma "
                 f"{errs[1]:.3g} (tolerance {tol}): "
@@ -1470,9 +1675,9 @@ def leaf_dists(a: dict, b: dict) -> dict:
             for k in a}
 
 
-# the parameters of phase 9's model by group (a name's first match)
+# the parameters of phases 9 and 11 by group (a name's first match)
 LEAF_GROUPS = (("attention", ".attn."), ("mlp", ".ffn."), ("norms", "norm"),
-               ("embedding", "embed"))
+               ("embedding", "embed"), ("head", "lm_head"))
 
 
 def check_agreement(what: str, diff: dict, floor: dict,
@@ -1482,8 +1687,11 @@ def check_agreement(what: str, diff: dict, floor: dict,
     ``each_tensor`` every tensor must be within LM_TOL_FLOORS x its own
     yardstick, else each group's L2 within LM_TOL_FLOORS x the group's.
     Logs the worst of each group; fails on any over its tolerance."""
-    groups = {g: [n for n in diff if key in n] for g, key in LEAF_GROUPS}
-    if sorted(sum(groups.values(), [])) != sorted(diff):
+    groups = {}
+    for n in diff:
+        g = next((g for g, key in LEAF_GROUPS if key in n), None)
+        groups.setdefault(g, []).append(n)
+    if None in groups:
         raise RuntimeError(f"parameters outside {LEAF_GROUPS}")
     bad = []
     for group, names in groups.items():
@@ -1505,20 +1713,98 @@ def check_agreement(what: str, diff: dict, floor: dict,
                            f"{bad} over {LM_TOL_FLOORS} x their yardstick")
 
 
+def restart_run(what: str, loss_fn, init_fn, batch_fn, opt_cfg,
+                steps: int, every: int, dev, decay_mask,
+                per_step: dict = None):
+    """``steps`` AdamW steps through ``run_training`` with a checkpoint
+    every ``every`` (under ``build/``, removed after), against a run that
+    fails at step ``every`` and resumes from its checkpoint: the resumed
+    steps' losses, the final parameters and AdamW moments must equal the
+    uninterrupted run's bit for bit (its final state waits on the host
+    meanwhile: two training states of an MoE model do not fit on the card
+    together), every loss finite. With ``per_step`` the uninterrupted
+    run's launches must be ``steps`` times it. Returns (its launches, its
+    losses, the resumed run's final state)."""
+    import shutil
+    import torch
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.loop import TrainLoopConfig, run_training
+    ck_root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ck_root, ignore_errors=True)
+    ck_root.mkdir(parents=True)
+    free = shutil.disk_usage(ck_root).free
+    loop = dict(steps=steps, ckpt_every=every, log_every=1)
+    kw = dict(device=dev, decay_mask=decay_mask)
+    zero_lm_counts()
+    t0 = time.perf_counter()
+    h_a = run_training(loss_fn, init_fn, batch_fn, opt_cfg,
+                       TrainLoopConfig(**loop),
+                       ckpt=CheckpointManager(str(ck_root / "a"), keep=1),
+                       **kw)
+    ck_bytes = sum(f.stat().st_size for f in (ck_root / "a").rglob("*")
+                   if f.is_file())
+    log(f"  {what}: uninterrupted run, {steps} steps with a checkpoint "
+        f"every {every} ({ck_bytes / 2**30:.2f} GiB; {free / 2**30:.0f} GiB "
+        f"free before): {time.perf_counter() - t0:.1f} s")
+    got = {} if per_step is None else expect_counts(
+        f"{steps} training steps (kernels)",
+        {k: steps * c for k, c in per_step.items()})
+    shutil.rmtree(ck_root / "a", ignore_errors=True)
+    if not all(math.isfinite(x) for x in h_a["loss"]) or \
+            len(h_a["loss"]) != steps:
+        raise RuntimeError(f"{what}: losses {h_a['loss']}")
+    s_a = h_a.pop("final_state")
+    final_a = {"params": {k: v.cpu() for k, v in
+                          s_a["params"].state_dict().items()},
+               "m": {k: v.cpu() for k, v in s_a["opt"].m.items()},
+               "v": {k: v.cpu() for k, v in s_a["opt"].v.items()},
+               "step": int(s_a["opt"].step)}
+    del s_a
+    torch.cuda.empty_cache()
+    ck_b = CheckpointManager(str(ck_root / "b"), keep=1)
+    try:
+        run_training(loss_fn, init_fn, batch_fn, opt_cfg,
+                     TrainLoopConfig(**loop, fail_at_step=every), ckpt=ck_b,
+                     **kw)
+        raise RuntimeError("the injected failure did not fire")
+    except RuntimeError as e:
+        if "injected failure" not in str(e):
+            raise
+    t0 = time.perf_counter()
+    h_b = run_training(loss_fn, init_fn, batch_fn, opt_cfg,
+                       TrainLoopConfig(**loop), ckpt=ck_b, **kw)
+    log(f"  {what}: resumed run from step {h_b['step'][0] - 1}: "
+        f"{time.perf_counter() - t0:.1f} s (restore included)")
+    shutil.rmtree(ck_root, ignore_errors=True)
+    s_b = h_b.pop("final_state")
+    same = h_b["step"] == h_a["step"][every:] and \
+        h_b["loss"] == h_a["loss"][every:]
+    same &= all(torch.equal(final_a["params"][k], t.cpu())
+                for k, t in s_b["params"].state_dict().items())
+    for f in ("m", "v"):
+        same &= all(torch.equal(final_a[f][k], t.cpu())
+                    for k, t in getattr(s_b["opt"], f).items())
+    same &= final_a["step"] == int(s_b["opt"].step) == steps
+    log(f"  {what}: losses, uninterrupted: {h_a['loss']}; resumed steps "
+        f"{h_b['step']}: {h_b['loss']}; parameters, m and v bit-equal: "
+        f"{same}")
+    if not same:
+        raise RuntimeError(f"{what}: the resumed run differs from the "
+                           "uninterrupted one")
+    return got, h_a["loss"], s_b
+
+
 def phase_train(dev) -> dict:
     """LM training at full width: qwen2-0.5b in bf16 with remat on the
     ``LMStream`` at ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens a step, AdamW on
     the card, all under ``torch.use_deterministic_algorithms(True)``.
     Returns the main path's launches by kernel."""
-    import shutil
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipelines import LMStream
     from repro_torch.models.transformer import (Transformer, decay_mask,
                                                 init_params, loss_fn)
-    from repro_torch.train.checkpoint import CheckpointManager
-    from repro_torch.train.loop import (TrainLoopConfig, run_training,
-                                        to_device)
+    from repro_torch.train.loop import to_device
     from repro_torch.train.optimizer import AdamWConfig, make_train_step
     t_phase = time.perf_counter()
     torch.use_deterministic_algorithms(True)
@@ -1602,63 +1888,15 @@ def phase_train(dev) -> dict:
     log(f"  agreement: {time.perf_counter() - t_phase:.1f} s")
 
     # -- restart: TRAIN_STEPS steps with a checkpoint every
-    # TRAIN_CKPT_EVERY, against a run that fails at TRAIN_CKPT_EVERY and
-    # resumes from its checkpoint
-    ck_root = ROOT / "build" / "chip_smoke_ckpt"
-    shutil.rmtree(ck_root, ignore_errors=True)
-    init_fn = lambda: init_params(cfg, seed=SEED, device=dev)
-    loop = dict(steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY, log_every=1)
-    zero_lm_counts()
-    t0 = time.perf_counter()
-    h_a = run_training(loss_fn, init_fn, stream.batch, opt_cfg,
-                       TrainLoopConfig(**loop),
-                       ckpt=CheckpointManager(str(ck_root / "a"), keep=1),
-                       device=dev, decay_mask=decay_mask)
-    log(f"  uninterrupted run, {TRAIN_STEPS} steps with checkpoints: "
-        f"{time.perf_counter() - t0:.1f} s")
-    got = expect_counts(f"{TRAIN_STEPS} training steps (kernels)",
-                        {k: TRAIN_STEPS * c for k, c in per_step.items()})
+    # TRAIN_CKPT_EVERY, against a run that fails there and resumes
+    got, _, state = restart_run(
+        cfg.name, loss_fn, lambda: init_params(cfg, seed=SEED, device=dev),
+        stream.batch, opt_cfg, TRAIN_STEPS, TRAIN_CKPT_EVERY, dev,
+        decay_mask, per_step)
     for k, c in got.items():
         launches[k] += c
-    shutil.rmtree(ck_root / "a", ignore_errors=True)
-    if not all(math.isfinite(x) for x in h_a["loss"]) or \
-            len(h_a["loss"]) != TRAIN_STEPS:
-        raise RuntimeError(f"losses {h_a['loss']}")
-    ck_b = CheckpointManager(str(ck_root / "b"), keep=1)
-    try:
-        run_training(loss_fn, init_fn, stream.batch, opt_cfg,
-                     TrainLoopConfig(**loop, fail_at_step=TRAIN_CKPT_EVERY),
-                     ckpt=ck_b, device=dev, decay_mask=decay_mask)
-        raise RuntimeError("the injected failure did not fire")
-    except RuntimeError as e:
-        if "injected failure" not in str(e):
-            raise
-    t0 = time.perf_counter()
-    h_b = run_training(loss_fn, init_fn, stream.batch, opt_cfg,
-                       TrainLoopConfig(**loop), ckpt=ck_b, device=dev,
-                       decay_mask=decay_mask)
-    log(f"  resumed run from step {h_b['step'][0] - 1}: "
-        f"{time.perf_counter() - t0:.1f} s (restore included)")
-    shutil.rmtree(ck_root, ignore_errors=True)
-    s_a, s_b = h_a["final_state"], h_b["final_state"]
-    same = h_b["step"] == h_a["step"][TRAIN_CKPT_EVERY:] and \
-        h_b["loss"] == h_a["loss"][TRAIN_CKPT_EVERY:]
-    same &= all(torch.equal(x, y) for x, y in zip(
-        s_a["params"].state_dict().values(),
-        s_b["params"].state_dict().values()))
-    for f in ("m", "v"):
-        same &= all(torch.equal(getattr(s_a["opt"], f)[k], t)
-                    for k, t in getattr(s_b["opt"], f).items())
-    same &= int(s_a["opt"].step) == int(s_b["opt"].step) == TRAIN_STEPS
-    log(f"  losses, uninterrupted: {h_a['loss']}; resumed steps "
-        f"{h_b['step']}: {h_b['loss']}; parameters, m and v bit-equal: "
-        f"{same}")
-    if not same:
-        raise RuntimeError("the resumed run differs from the uninterrupted "
-                           "one")
-    model = s_a["params"]
-    opt = s_a["opt"]
-    del h_a, h_b, s_a, s_b
+    model, opt = state["params"], state["opt"]
+    del state
     torch.cuda.empty_cache()
 
     # -- throughput, peak memory and a profiled step
@@ -1773,7 +2011,9 @@ def prefill_f32(model, tokens, into: list, by_layer: bool):
 def device_ms_by_kind(rows: list) -> dict:
     """Device ms of :func:`device_profile`'s kernel ``rows`` summed by
     kind of kernel."""
-    kinds = (("flash_attention", ("flash_bf16_kernel",)),
+    kinds = (("flash_attention_bwd", ("dkdv_bf16_kernel", "dq_bf16_kernel",
+                                      "rowdot_kernel")),
+             ("flash_attention", ("flash_bf16_kernel",)),
              ("rmsnorm", ("rmsnorm",)),
              ("matmul", ("gemm", "nvjet", "sm90_", "cutlass", "xmma")),
              ("sort/search", ("sort", "Sort", "radix", "searchsorted")),
@@ -1810,7 +2050,7 @@ def moe_stage_ms(model, tokens) -> dict:
               "dispatch": lambda: moe.dispatch(r.experts),
               "gather": lambda: moe.gather(xf, disp),
               "experts": lambda: moe.expert_ffn(xin),
-              "combine": lambda: moe.combine(y, r.gates, disp.rows)}
+              "combine": lambda: moe.combine(y, r.gates, disp)}
     if moe.shared is not None:
         stages["shared"] = lambda: moe.shared(x)
     out = {k: cuda_time_ms(fn, 5) for k, fn in stages.items()}
@@ -2015,6 +2255,467 @@ def phase_moe(dev) -> dict:
     torch.cuda.empty_cache()
     log(f"  phase 10: {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: MoE and MLA training at full width
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def routing_fixed(modules, table: dict, flips: list):
+    """Each MoE module's ``route`` patched while the context is open (in
+    this script only): the module at position i of ``modules`` takes the
+    experts of ``table[i]`` (another run's, in their order), with gates
+    recomputed from this run's probabilities and renormalised over the k,
+    the function ``jax.grad`` differentiates; a module without an entry
+    records its first call's experts there first. Every call takes that
+    one form (the values and gradients of ``MoE.route``'s own top-k), so
+    remat's recompute saves what the forward saved. Each call appends
+    the tokens whose own top-k set differs from the table's to
+    ``flips``."""
+    from repro_torch.layers.moe import Routing
+
+    def fixed(mod, i):
+        own = mod.route
+
+        def route(xf):
+            r = own(xf)
+            if i not in table:
+                table[i] = r.experts.detach().clone()
+            want = table[i]
+            flips.append(int((r.experts.sort(dim=-1).values !=
+                              want.sort(dim=-1).values).any(dim=-1).sum()))
+            gates = r.probs.gather(-1, want)
+            return Routing(gates / gates.sum(dim=-1, keepdim=True), want,
+                           r.probs)
+        return route
+    for i, m in enumerate(modules):
+        m.route = fixed(m, i)
+    try:
+        yield table
+    finally:
+        for m in modules:
+            del m.route                             # the class's again
+
+
+def grad_step(model, batch, impl: str):
+    """``loss_fn`` and its backward with ``impl`` for both kernels, no
+    optimizer: (loss, grad norm, aux, the gradients by name)."""
+    import torch
+    from repro_torch.models.transformer import loss_fn
+    from repro_torch.train.optimizer import global_norm
+    loss, metrics = loss_fn(model, batch, attn_impl=impl, norm_impl=impl)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    gn = float(global_norm(grads))
+    torch.cuda.synchronize()
+    return loss.item(), gn, metrics["aux"].item(), grads
+
+
+def leaf_dists_on(a: dict, b: dict, dev) -> dict:
+    """:func:`leaf_dists` with each pair moved to ``dev`` for its turn
+    (the gradients of two runs wait on the host)."""
+    return {k: leaf_dists({k: a[k].to(dev)}, {k: b[k].to(dev)})[k]
+            for k in a}
+
+
+def phase_moe_train_lm(dev, arch: str) -> dict:
+    """One MoE model's training at full width (``MOE_TRAIN_LAYERS`` layers)
+    in bf16 with remat on ``LMStream`` TRAIN_BATCH x TRAIN_SEQ, under
+    deterministic algorithms: a step's loss, aux, grad norm and every
+    gradient with the kernels against the plain versions within
+    ``LM_TOL_FLOORS`` x the plain bf16 step's distance from the same
+    weights in f32, all three on the kernel run's routing (replayed, its
+    flips logged); then ``MOE_TRAIN_STEPS`` AdamW steps at
+    ``MOE_RESTART_LAYERS`` layers with a checkpoint and a failed-and-
+    resumed run that must be bit-exact, exact launches; then
+    ``MOE_TIMED_STEPS`` AdamW steps at full depth from seed 0 (tok/s; the
+    loss must fall over them), peak memory and a profiled step. Returns
+    the main path's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipelines import LMStream
+    from repro_torch.models.transformer import (Transformer, decay_mask,
+                                                init_params, loss_fn)
+    from repro_torch.train.loop import to_device
+    from repro_torch.train.optimizer import AdamWConfig, make_train_step
+    t_arch = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch).model_cfg,
+                              n_layers=MOE_TRAIN_LAYERS[arch])
+    L, mla = cfg.n_layers, cfg.attn_kind == "mla"
+    if not cfg.remat or cfg.dtype != torch.bfloat16:
+        raise RuntimeError(f"{cfg.name}: expected remat in bf16")
+    norms = 3 if mla else 2
+    per_step = {"flash_attention": 2 * L, "flash_attention_bwd": L,
+                "rmsnorm": 2 * norms * L + 1, "rmsnorm_bwd": norms * L + 1}
+    none = {k: 0 for k in per_step}
+    launches = dict(none)
+    stream = LMStream(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    batch = to_device(stream.batch(0), dev)
+    model = init_params(cfg, seed=SEED, device=dev)
+    n = sum(p.numel() for p in model.parameters())
+    log(f"  {cfg.name}: {L} of {get_config(arch).model_cfg.n_layers} layers "
+        f"({L - cfg.first_dense_layers} MoE), {n} parameters, bf16, remat, "
+        f"LMStream {TRAIN_BATCH} x {TRAIN_SEQ} = {tokens} tokens a step; "
+        f"torch.use_deterministic_algorithms(True)")
+
+    # -- agreement on one routing: the kernel step records it, the plain
+    # bf16 and f32 steps replay it
+    table, flips = {}, {"kernels": [], "kernels again": [], "plain": [],
+                        "f32": []}
+    moes = moe_modules(model)
+    zero_lm_counts()
+    t0 = time.perf_counter()
+    with routing_fixed(moes, table, flips["kernels"]):
+        loss_k, gn_k, aux_k, g_k = grad_step(model, batch, "auto")
+    log(f"  first step (kernels, no optimizer): "
+        f"{time.perf_counter() - t0:.3f} s, loss {loss_k:.6f} (aux "
+        f"{aux_k:.6f}), grad norm {gn_k:.6f}")
+    for k, c in expect_counts("training step (kernels)",
+                              {**per_step}).items():
+        launches[k] += c
+    with routing_fixed(moes, table, flips["kernels again"]):
+        loss_r, _, _, g_r = grad_step(model, batch, "auto")
+    same = loss_r == loss_k and all(torch.equal(g_r[k], g_k[k])
+                                    for k in g_k)
+    zero_lm_counts()
+    log(f"  a repeated kernel step (replayed routing): the same bits "
+        f"{same}")
+    if not same:
+        raise RuntimeError("a repeated training step differs")
+    del g_r
+    g_k = {k: v.cpu() for k, v in g_k.items()}
+    t0 = time.perf_counter()
+    with routing_fixed(moes, table, flips["plain"]):
+        loss_p, gn_p, aux_p, g_p = grad_step(model, batch, "ref")
+    log(f"  step (plain versions, replayed routing): "
+        f"{time.perf_counter() - t0:.3f} s, loss {loss_p:.6f}, grad norm "
+        f"{gn_p:.6f}")
+    expect_counts("training step (plain)", none)
+    g_p = {k: v.cpu() for k, v in g_p.items()}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model32 = Transformer(dataclasses.replace(cfg, dtype=torch.float32),
+                          torch.Generator(device=dev))
+    model32.load_state_dict(model.state_dict())          # bf16 -> f32
+    del model
+    torch.cuda.empty_cache()
+    with routing_fixed(moe_modules(model32), table, flips["f32"]):
+        loss_32, gn_32, _, g_32 = grad_step(model32, batch, "ref")
+    del model32
+    log(f"  f32 step (plain versions, replayed routing): loss "
+        f"{loss_32:.6f}, grad norm {gn_32:.6f}")
+    n_sets = tokens * len(moes)
+    for tag, f in flips.items():
+        log(f"  routing flips, {tag} run against the kernel run's routing: "
+            f"{sum(f)} of {n_sets} (token, layer) expert sets "
+            f"({100 * sum(f) / n_sets:.2f}%; recompute calls included: "
+            f"{len(f)} calls)")
+    if sum(flips["kernels again"]) or sum(flips["kernels"]):
+        raise RuntimeError("the kernel run's own routing changed between "
+                           "its forward and its recompute")
+    for what, diff, floor in (("loss", abs(loss_k - loss_p),
+                               abs(loss_p - loss_32)),
+                              ("grad norm", abs(gn_k - gn_p),
+                               abs(gn_p - gn_32))):
+        tol = LM_TOL_FLOORS * floor
+        log(f"  kernels vs plain, {what}: {diff:.4g} (tolerance "
+            f"{LM_TOL_FLOORS} x {floor:.4g} = {tol:.4g}): "
+            f"{'ok' if diff <= tol else 'FAIL'}")
+        if not diff <= tol:
+            raise RuntimeError(f"{arch} training step, kernels vs plain: "
+                               f"{what} {diff} > {tol}")
+    check_agreement("gradient", leaf_dists_on(g_k, g_p, dev),
+                    leaf_dists_on(g_p, g_32, dev), each_tensor=True)
+    del g_k, g_p, g_32
+    torch.cuda.empty_cache()
+    log(f"  agreement: {time.perf_counter() - t_arch:.1f} s")
+
+    # -- restart: MOE_TRAIN_STEPS AdamW steps with a checkpoint every
+    # MOE_TRAIN_CKPT_EVERY, against a run that fails there and resumes
+    rcfg = dataclasses.replace(cfg, n_layers=MOE_RESTART_LAYERS[arch])
+    opt_cfg = AdamWConfig(lr=MOE_TRAIN_LR, warmup_steps=1,
+                          decay_steps=MOE_TRAIN_STEPS + MOE_TIMED_STEPS)
+    got, _, state = restart_run(
+        f"{cfg.name}, {rcfg.n_layers} layers", loss_fn,
+        lambda: init_params(rcfg, seed=SEED, device=dev), stream.batch,
+        opt_cfg, MOE_TRAIN_STEPS, MOE_TRAIN_CKPT_EVERY, dev, decay_mask,
+        {"flash_attention": 2 * rcfg.n_layers,
+         "flash_attention_bwd": rcfg.n_layers,
+         "rmsnorm": 2 * norms * rcfg.n_layers + 1,
+         "rmsnorm_bwd": norms * rcfg.n_layers + 1})
+    for k, c in got.items():
+        launches[k] += c
+    del state
+    torch.cuda.empty_cache()
+
+    # -- at full depth from seed 0: timed AdamW steps (the loss must fall
+    # over them), peak memory, a profiled step
+    from repro_torch.train.optimizer import adamw_init
+    model = init_params(cfg, seed=SEED, device=dev)
+    opt = adamw_init(dict(model.named_parameters()))
+    step_fn = make_train_step(loss_fn, opt_cfg, decay=decay_mask(
+        dict(model.named_parameters())))
+    torch.cuda.reset_peak_memory_stats(dev)
+    seconds, losses = [], []
+    for i in range(MOE_TIMED_STEPS):
+        b = to_device(stream.batch(i), dev)
+        t0 = time.perf_counter()
+        model, opt, metrics = step_fn(model, opt, b)
+        losses.append(metrics["loss_total"].item())
+        seconds.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    rate = tokens / statistics.mean(seconds[1:])
+    # the first step's batch again, after the steps: its loss must fall
+    # (a fixed batch, so the batches' own spread does not enter)
+    with torch.no_grad():
+        after = loss_fn(model, to_device(stream.batch(0), dev))[0].item()
+    log(f"  {L} layers, AdamW steps (lr {MOE_TRAIN_LR}): "
+        f"{[round(x, 4) for x in seconds]} s; {rate:.0f} tok/s (all but "
+        f"the first); peak {peak:.2f} GiB; losses "
+        f"{[round(x, 4) for x in losses]}; the first batch's loss "
+        f"{losses[0]:.4f} before, {after:.4f} after")
+    if not all(math.isfinite(x) for x in losses) or \
+            not after < losses[0]:
+        raise RuntimeError(f"{arch}: the loss did not fall: {losses}, "
+                           f"{after} after")
+    b = to_device(stream.batch(MOE_TIMED_STEPS), dev)
+    rows = device_profile(f"one {cfg.name} training step (kernels)",
+                          lambda: step_fn(model, opt, b))
+    kinds = device_ms_by_kind(rows)
+    busy = sum(kinds.values())
+    if busy:
+        log("  device ms of the step by kind: " + ", ".join(
+            f"{k} {ms:.1f} ({100 * ms / busy:.1f}%)"
+            for k, ms in sorted(kinds.items(), key=lambda x: -x[1])))
+    del model, opt
+    torch.cuda.empty_cache()
+    log(f"  {cfg.name}: {time.perf_counter() - t_arch:.1f} s")
+    return launches
+
+
+def phase_moe_train(dev) -> dict:
+    """Phase 11: each of MOE_ARCHS in turn (:func:`phase_moe_train_lm`),
+    freed after, under ``torch.use_deterministic_algorithms(True)``."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    launches = {}
+    for arch in MOE_ARCHS:
+        for k, c in phase_moe_train_lm(dev, arch).items():
+            launches[k] = launches.get(k, 0) + c
+    torch.use_deterministic_algorithms(False)
+    log(f"  phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: BST (recsys) at full width
+# ---------------------------------------------------------------------------
+
+
+def bst_f64(model):
+    """A float64 copy of a BST model on the CPU (the yardstick)."""
+    import copy
+    import torch
+    cpu = copy.deepcopy(model).to("cpu", torch.float64)
+    cpu.cfg = dataclasses.replace(model.cfg, dtype=torch.float64)
+    return cpu
+
+
+def check_close(tag: str, got, want, tol: float) -> float:
+    """``max|got - want| <= tol * max(1, max|want|)`` or raise; returns
+    the error."""
+    err = float((got.double().cpu() - want).abs().max()) if want.numel() \
+        else 0.0
+    bound = tol * max(1.0, float(want.abs().max()) if want.numel() else 0.0)
+    log(f"  {tag}: max_abs_err {err:.3g} against f64 (tolerance "
+        f"{bound:.3g}): {'ok' if err <= bound else 'FAIL'}")
+    if not err <= bound:
+        raise RuntimeError(f"{tag}: {err} > {bound}")
+    return err
+
+
+def phase_bst(dev) -> None:
+    """BST at full width on the card (f32, TF32 off), through the entry
+    points a user calls: ``serve_recsys`` (the serve CLI's loop) at the p99
+    and bulk batches in req/s; ``bst_retrieval`` of one user against every
+    one of the 10^6 items, in chunks sized from the bytes reckoned here;
+    ``run_training`` with ``bst_loss`` at 65,536 rows a step under
+    deterministic algorithms (a repeated step bit-equal, the loss falling,
+    a checkpoint and a failed-and-resumed run bit-exact), rows/s, peak
+    memory and a profiled step. Scores, retrieval logits, the loss and
+    every gradient are held against an f64 CPU run of the same weights on
+    ``BST_CHECK_ROWS`` rows and candidates, within ``BST_TOL``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.bst import SHAPES
+    from repro_torch.data.pipelines import RecsysStream
+    from repro_torch.launch.serve import serve_recsys
+    from repro_torch.models.bst import (bst_decay_mask, bst_loss,
+                                        bst_retrieval, bst_scores,
+                                        init_bst_params)
+    from repro_torch.train.loop import to_device
+    from repro_torch.train.optimizer import AdamWConfig, make_train_step
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("bst").model_cfg
+    if sorted(BST_SERVE_BATCHES) != sorted(
+            SHAPES[k]["batch"] for k in ("serve_p99", "serve_bulk")):
+        raise RuntimeError(f"serving batches differ from {SHAPES}")
+    model = init_bst_params(cfg, seed=SEED, device=dev)
+    n = sum(p.numel() for p in model.parameters())
+    log(f"  {cfg.name}: {n} parameters (config {cfg.n_params}), f32, "
+        f"{cfg.n_items} items, {cfg.n_user_feats} user features in bags "
+        f"of {cfg.user_feat_len}, d {cfg.embed_dim}, {cfg.seq_len} + 1 "
+        f"positions, {cfg.n_heads} heads, MLP {cfg.mlp_sizes}")
+    if n != cfg.n_params:
+        raise RuntimeError(f"{n} parameters, the config says {cfg.n_params}")
+    ref64 = bst_f64(model)
+    k = BST_CHECK_ROWS
+
+    def stream(batch):
+        return RecsysStream(cfg.n_items, cfg.n_user_feats, cfg.seq_len,
+                            cfg.user_feat_len, batch)
+
+    # -- serving: the CLI's loop (seed-0 weights, the same as model's)
+    for batch, steps in BST_SERVE_BATCHES.items():
+        serve_recsys(cfg, batch, 1, dev)                    # warm-up
+        torch.cuda.reset_peak_memory_stats(dev)
+        scores, dt = serve_recsys(cfg, batch, steps, dev)
+        log(f"  serve {steps} batches of {batch}: {dt:.4f} s, "
+            f"{steps * batch / dt:.0f} req/s, peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, mean "
+            f"CTR {float(scores.mean()):.4f}")
+        last = {key: torch.from_numpy(v[:k]).long() if v.dtype.kind == "i"
+                else torch.from_numpy(v[:k])
+                for key, v in stream(batch).batch(steps - 1).items()}
+        with torch.no_grad():
+            want = torch.sigmoid(bst_scores(ref64, last["hist"],
+                                            last["target"],
+                                            last["user_feats"]))
+        if scores.shape != (batch,) or not bool(torch.isfinite(scores).all()):
+            raise RuntimeError(f"serve batch {batch}: scores "
+                               f"{tuple(scores.shape)}")
+        check_close(f"serve {batch}: CTR of the first {k} rows",
+                    scores[:k], want, BST_TOL)
+    del scores
+
+    # -- retrieval: one user against every item, in chunks
+    one = to_device(stream(1).batch(0), dev)
+    cands = torch.randperm(cfg.n_items, generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+    c_total = SHAPES["retrieval_cand"]["n_candidates"]
+    t = cfg.seq_len + 1
+    d, f = cfg.embed_dim, cfg.embed_dim * cfg.d_ff_mult
+    per_cand = 4 * (2 * cfg.n_heads * t * t + 8 * t * d + 2 * t * f
+                    + cfg.concat_dim + 2 * sum(cfg.mlp_sizes))
+    free = torch.cuda.mem_get_info(dev)[0]
+    chunk = min(c_total, 1 << int(math.log2(free / 4 / per_cand)))
+    log(f"  retrieval of {c_total} candidates: ~{per_cand} bytes of "
+        f"activations a candidate ({per_cand * c_total / 2**30:.1f} GiB at "
+        f"once; the [C, {cfg.n_heads}, {t}, {t}] f32 scores alone "
+        f"{4 * cfg.n_heads * t * t * c_total / 2**30:.1f} GiB), "
+        f"{free / 2**30:.1f} GiB free: chunks of {chunk} (the same scores: "
+        "each row depends on its own candidate)")
+    with torch.inference_mode():
+        bst_retrieval(model, one["hist"], one["user_feats"], cands[:chunk],
+                      chunk=chunk)                           # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        logits = bst_retrieval(model, one["hist"], one["user_feats"],
+                               cands[:c_total], chunk=chunk)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    log(f"  retrieval: {dt:.4f} s, {c_total / dt:.0f} candidates/s, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, top "
+        f"logit {float(logits.max()):.4f}")
+    if logits.shape != (c_total,) or not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"retrieval logits {tuple(logits.shape)}")
+    sample = torch.arange(0, c_total, c_total // k, device=dev)[:k]
+    with torch.no_grad():
+        want = bst_retrieval(ref64, one["hist"].cpu(),
+                             one["user_feats"].cpu(), cands[sample].cpu())
+    check_close(f"retrieval: {k} candidates' logits", logits[sample], want,
+                BST_TOL)
+    del logits, cands
+
+    # -- training at 65,536 rows a step, deterministic
+    torch.use_deterministic_algorithms(True)
+    rows = SHAPES["train_batch"]["batch"]
+    tstream = stream(rows)
+    batch = to_device(tstream.batch(0), dev)
+    grads = []
+    for _ in range(2):
+        loss, metrics = bst_loss(model, batch)
+        loss.backward()
+        grads.append({n_: p.grad.clone() for n_, p in
+                      model.named_parameters()})
+        model.zero_grad(set_to_none=True)
+    same = all(torch.equal(grads[0][n_], grads[1][n_]) for n_ in grads[0])
+    log(f"  a training step of {rows} rows: loss {loss.item():.6f}, acc "
+        f"{metrics['acc'].item():.4f}; repeated, the same gradient bits "
+        f"{same}")
+    if not same:
+        raise RuntimeError("BST: a repeated training step differs")
+    del grads
+    part = {key: v[:k] for key, v in batch.items()}
+    loss, _ = bst_loss(model, part)
+    loss.backward()
+    got = {n_: p.grad for n_, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    loss64, _ = bst_loss(ref64, {key: v.cpu() for key, v in part.items()})
+    loss64.backward()
+    check_close(f"training: the loss of the first {k} rows",
+                loss.detach().reshape(1), loss64.detach().reshape(1),
+                BST_TOL)
+    worst = max((float((got[n_].double().cpu() - p.grad).abs().max())
+                 / max(float(p.grad.abs().max()), 1e-30), n_)
+                for n_, p in ref64.named_parameters())
+    log(f"  training: every gradient of the first {k} rows against f64, "
+        f"worst max_abs_err / max|want| {worst[0]:.3g} ({worst[1]}; "
+        f"tolerance {BST_TOL}): {'ok' if worst[0] <= BST_TOL else 'FAIL'}")
+    if not worst[0] <= BST_TOL:
+        raise RuntimeError(f"BST gradient {worst[1]}: {worst[0]}")
+    del got, ref64, model
+    torch.cuda.empty_cache()
+
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                          decay_steps=BST_TRAIN_STEPS)
+    _, losses, state = restart_run(
+        cfg.name, bst_loss, lambda: init_bst_params(cfg, seed=SEED,
+                                                    device=dev),
+        tstream.batch, opt_cfg, BST_TRAIN_STEPS, BST_CKPT_EVERY, dev,
+        bst_decay_mask)
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"BST: the loss did not fall: {losses}")
+    model, opt = state["params"], state["opt"]
+    del state
+    step_fn = make_train_step(bst_loss, opt_cfg, decay=bst_decay_mask(
+        dict(model.named_parameters())))
+    torch.cuda.reset_peak_memory_stats(dev)
+    seconds = []
+    for i in range(3):
+        b = to_device(tstream.batch(BST_TRAIN_STEPS + i), dev)
+        t0 = time.perf_counter()
+        model, opt, metrics = step_fn(model, opt, b)
+        metrics["loss_total"].item()
+        seconds.append(time.perf_counter() - t0)
+    log(f"  training steps of {rows} rows: "
+        f"{[round(x, 4) for x in seconds]} s; "
+        f"{rows / statistics.mean(seconds[1:]):.0f} rows/s (steps 2-3, "
+        f"host batch included); peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    b = to_device(tstream.batch(BST_TRAIN_STEPS + 3), dev)
+    device_profile("one BST training step", lambda: step_fn(model, opt, b))
+    torch.use_deterministic_algorithms(False)
+    del model, opt
+    torch.cuda.empty_cache()
+    log(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2591,6 +3292,9 @@ def main() -> int:
     kern["flash_attention"]["max_abs_err"] = max(
         kern["flash_attention"]["max_abs_err"], mla["max_abs_err"])
     kern.update(phase_lm_bwd_kernels(dev, bandwidth, peak))
+    mla_bwd = phase_mla_flash_bwd(dev, bandwidth, peak)
+    kern["flash_attention_bwd"]["max_abs_err"] = max(
+        kern["flash_attention_bwd"]["max_abs_err"], mla_bwd["max_abs_err"])
     log("phase 3: mid-size exactness")
     g_mid, tri_mid, mid_runs = phase_mid(dev)
     log("phase 4: full size (main path)")
@@ -2607,6 +3311,13 @@ def main() -> int:
         f"({', '.join(MOE_ARCHS)})")
     for k, c in phase_moe(dev).items():
         launches[k] += c
+    log("phase 11: MoE and MLA training at full width "
+        f"({', '.join(MOE_ARCHS)})")
+    for k, c in phase_moe_train(dev).items():
+        launches[k] += c
+    log("phase 12: BST (recsys) at full width: serving, retrieval, "
+        "training")
+    phase_bst(dev)
     log("phase 6: out-of-core B-BENU (host row store + device row cache)")
     with gc_paused():
         launches["sorted_intersect"] += phase_ooc(
@@ -2641,9 +3352,11 @@ def main() -> int:
                    "src/repro/kernels/flash_attention.py:68"),
                "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm_bwd.cu",
                                "src/repro/kernels/rmsnorm.py:25")}
-    kern["flash_attention"]["at_mla_shape"] = {
-        k: mla[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                            "bound_by", "shape")}
+    for name, at in (("flash_attention", mla),
+                     ("flash_attention_bwd", mla_bwd)):
+        kern[name]["at_mla_shape"] = {
+            k: at[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by", "shape")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": kern[name]["max_abs_err"],

@@ -2,9 +2,9 @@
 ``list_archs()``.
 
 Counterpart of ``repro/configs/__init__.py`` for the architectures the
-port runs so far: the five LMs (dense GQA, MoE, MLA). The others of the
-reference's registry raise ``NotImplementedError`` naming the slice that
-brings them.
+port runs so far: the five LMs (dense GQA, MoE, MLA) and the recsys model
+BST. The others of the reference's registry raise
+``NotImplementedError`` naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
 _MODULES = {
+    "bst": "bst",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
@@ -27,7 +28,6 @@ _LATER = {
     "pna": "the GNN slice",
     "egnn": "the GNN slice",
     "gin-tu": "the GNN slice",
-    "bst": "the recsys (BST) slice",
     "benu": "no model config (run repro_torch.launch.enumerate)",
 }
 

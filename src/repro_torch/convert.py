@@ -10,6 +10,8 @@ weights:
         n, "cpu")
     sd = lm_state_dict_from_numpy(jax.tree.map(np.asarray, params), cfg)
     model.load_state_dict(sd)
+    bst.load_state_dict(bst_state_dict_from_numpy(
+        jax.tree.map(np.asarray, bst_params), bst_cfg))
     shards, hot_rows, jspec = build_row_shards(jax_graph, S, hot=8)
     shard, hot, spec = row_shards_from_numpy(
         shards, hot_rows, dataclasses.asdict(jspec), rank, "cpu")
@@ -144,6 +146,26 @@ def lm_state_dict_from_numpy(params: Mapping[str, Any],
     if i != cfg.n_layers:
         raise ValueError(f"{i} stacked layers for a config of "
                          f"{cfg.n_layers}")
+    return sd
+
+
+def bst_state_dict_from_numpy(params: Mapping[str, Any],
+                              cfg) -> Dict[str, torch.Tensor]:
+    """The port's ``BST`` state_dict from the JAX package's BST params
+    (``np.asarray`` leaves of ``repro.models.bst.init_bst_params``): the
+    three tables as they are, each ``[n_blocks, ...]`` leaf of ``blocks``
+    split into ``blocks.{i}.<name>``, and ``mlp.w{i}`` / ``mlp.b{i}``."""
+    sd = {name: _tensor(params[name])
+          for name in ("item_emb", "pos_emb", "user_emb")}
+    for name, leaf in _leaves(params["blocks"]):
+        leaf = np.asarray(leaf)
+        if leaf.shape[0] != cfg.n_blocks:
+            raise ValueError(f"blocks.{name}{leaf.shape}: expected "
+                             f"{cfg.n_blocks} stacked blocks")
+        for i in range(cfg.n_blocks):
+            sd[f"blocks.{i}.{name}"] = _tensor(leaf[i])
+    for name, leaf in _leaves(params["mlp"], "mlp."):
+        sd[name] = _tensor(leaf)
     return sd
 
 

@@ -170,10 +170,42 @@ __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(1));
 }
 
+// D[64 x 32] += A[64 x 16] * B[32 x 16]^T, A and B K-major in shared
+// memory (128-byte swizzle), bf16 in, f32 accumulate
+__device__ __forceinline__ void wgmma_m64n32_ss(float (&d)[16], uint64_t a,
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
 // The first k step of a product: D[64 x N] = A[64 x 16] * B[N x 16]^T, A
 // and B K-major in shared memory, D written and not read (its registers
 // carry nothing into the product, so a fresh accumulator need not be
 // zeroed or kept alive between products)
+__device__ __forceinline__ void wgmma_m64n32_ss_first(float (&d)[16],
+                                                     uint64_t a,
+                                                     uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+      : "l"(a), "l"(b), "r"(0));
+}
 __device__ __forceinline__ void wgmma_m64n64_ss_first(float (&d)[32],
                                                      uint64_t a,
                                                      uint64_t b) {

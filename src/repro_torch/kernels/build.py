@@ -49,12 +49,12 @@ SIGNATURES: Dict[str, Tuple[str, List[type]]] = {
     #  of q, k, v, out; lse: [B, Hq, Tq] f32 or null
     "flash_attention": ("flash_attention_launch",
                         [_P] * 5 + [_I] * 7 + [_LL, _I, _F, _I, _I, _P]),
-    # (q, k, v, out, dout, lse, D, dq, dk, dv, B, Hq, Hkv, Tq, Tk, d,
-    #  strides, causal, scale, dtype, device, stream); strides: 24 int64,
-    #  (batch, head, row) of q, k, v, out, dout, dq, dk, dv; D: a scratch
-    #  of 2 * B * Hq * ceil(Tq / 64) * 64 f32
+    # (q, k, v, out, dout, lse, D, dq, dk, dv, B, Hq, Hkv, Tq, Tk, dqk,
+    #  dv, strides, causal, scale, dtype, device, stream); strides: 24
+    #  int64, (batch, head, row) of q, k, v, out, dout, dq, dk, dv; D: a
+    #  scratch of 2 * B * Hq * ceil(Tq / 64) * 64 f32
     "flash_attention_bwd": ("flash_attention_bwd_launch",
-                            [_P] * 10 + [_I] * 6 + [_LL, _I, _F, _I, _I,
+                            [_P] * 10 + [_I] * 7 + [_LL, _I, _F, _I, _I,
                                                     _P]),
     # (x, gamma, g, dx, dgamma, partial, R, d, eps, chunks, body, warps,
     #  dtype, device, stream); partial: [chunks, d] f32 scratch; body and

@@ -21,7 +21,9 @@ bf16 operands, f32 sums) with Q/dO or K/V tiles brought in by TMA: a
 dk/dv kernel per 128 keys and a dq kernel per 128 queries that recomputes
 S and dP; f32 inputs keep f32 FMAs on shared-memory tiles. Both are
 deterministic (no atomics: dk and dv sum the GQA group's q heads inside
-one block). The backward takes ``dqk == dv <= 128`` only.
+one block). The backward takes the forward's widths: q and k may be wider
+than v (MLA's (192, 128) runs 32-query steps in the dk/dv kernel and
+64-key tiles in the dq kernel; see the source's header).
 """
 
 from __future__ import annotations
@@ -43,14 +45,13 @@ bwd_launches = 0
 
 #: TMA's alignment, in bytes, of a tensor's base address and of its strides
 ALIGN = 16
-#: the forward's widest q/k and v rows (``csrc/flash_attention.cu``: three
-#: and two 64-column boxes of the bf16 body)
+#: the widest q/k and v rows of the forward and the backward
+#: (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``: three and
+#: two 64-column boxes of the bf16 bodies)
 MAX_DQK, MAX_DV = 192, 128
-#: the backward's widest rows (``csrc/flash_attention_bwd.cu``), equal
-MAX_D_BWD = 128
 #: the backward's scratch pads each (batch, head)'s rows to a multiple of
-#: this (``kQS`` in ``csrc/flash_attention_bwd.cu``: its bf16 body copies
-#: 64 rows of lse and D at a time)
+#: this (``kLdRows`` in ``csrc/flash_attention_bwd.cu``: its bf16 body
+#: copies up to 64 rows of lse and D at a time)
 BWD_ROWS = 64
 
 
@@ -195,26 +196,25 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                                         torch.Tensor]:
     """``(dq, dk, dv)`` on the card (``csrc/flash_attention_bwd.cu``) from
     the forward's inputs, its output and ``lse``, and the output's
-    gradient ``dout``. q, k, v and out take the forward's rules, with
-    k and v of one shape and ``d <= 128`` (``MAX_D_BWD``); ``dout``
-    is read in place when :func:`view_strides` accepts it (autograd hands
-    it over in out's layout) and made contiguous here otherwise. dq, dk
-    and dv are laid out as ``torch.empty_like`` of q, k and v. The
-    kernel's plain version is
+    gradient ``dout``. q, k, v and out take the forward's rules (q and k
+    ``dqk <= 192`` wide, v and out ``dv <= 128``: MLA's k is a
+    concatenation and its v a strided view of a wider row, both read in
+    place); ``dout`` is read in place when :func:`view_strides` accepts it
+    (autograd hands it over in out's layout) and made contiguous here
+    otherwise, a copy of ``B * Hq * Tq * dv`` elements. dq, dk and dv are
+    laid out as ``torch.empty_like`` of q, k and v (dv of MLA's v, a view
+    with gaps, is a contiguous tensor of v's shape). The kernel's plain
+    version is
     :func:`repro_torch.kernels.ref.flash_attention_backward`."""
     global bwd_launches
     strides = _check_qkv(q, k, v)
     b, hq, tq, d = q.shape
-    if v.shape != k.shape or d > MAX_D_BWD:
-        raise ValueError(f"the backward kernel takes k and v of one shape "
-                         f"with d <= {MAX_D_BWD}, got k{tuple(k.shape)} "
-                         f"and v{tuple(v.shape)}")
-    hkv, tk = k.shape[1], k.shape[2]
+    hkv, tk, dv_w = k.shape[1], k.shape[2], v.shape[3]
     for name, t in (("out", out), ("dout", dout)):
         _check_cuda(name, t, q.dtype)
-        if t.shape != q.shape:
-            raise ValueError(f"{name}{tuple(t.shape)} must have q's shape "
-                             f"{tuple(q.shape)}")
+        if t.shape != (b, hq, tq, dv_w):
+            raise ValueError(f"{name}{tuple(t.shape)} must be [B, Hq, Tq, "
+                             f"dv] = {(b, hq, tq, dv_w)}")
     _check_cuda("lse", lse, torch.float32)
     if lse.shape != (b, hq, tq) or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous [B, Hq, Tq] = "
@@ -242,7 +242,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, hq, hkv, tq, tk, d, flat,
+        dk.data_ptr(), dv.data_ptr(), b, hq, hkv, tq, tk, d, dv_w, flat,
         int(bool(causal)), float(scale), build.dtype_code(q.dtype),
         q.device.index, stream)
     build.check(lib, err, "flash_attention_bwd")

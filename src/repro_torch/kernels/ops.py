@@ -106,7 +106,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``impl``: auto | cuda (csrc/flash_attention.cu: strided views with a
     contiguous last dimension and 16-byte aligned strides, dqk <= 192 and
-    dv <= 128; its backward takes dqk == dv <= 128) | ref
+    dv <= 128, forward and backward) | ref
     (the plain version; autograd differentiates it). When autograd
     records the call, ``cuda`` goes through ``FlashAttentionFn``, whose
     backward is csrc/flash_attention_bwd.cu. See

@@ -1,18 +1,23 @@
-"""Serving launcher of the port: batched LM decode with a KV cache.
+"""Serving launcher of the port: batched LM decode with a KV cache, or
+batched CTR scoring (BST).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
         [--smoke] --batch 4 --prompt-len 16 --decode-steps 32 \\
         --cache-len 128 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch bst \\
+        [--smoke] --batch 512 --decode-steps 32 [--device cpu]
 
-``--arch`` takes the five LMs: qwen2-0.5b, qwen2.5-3b, phi4-mini-3.8b and
-the MoE models granite-moe-3b-a800m (GQA) and deepseek-v2-lite-16b (MLA).
+``--arch`` takes the five LMs (qwen2-0.5b, qwen2.5-3b, phi4-mini-3.8b and
+the MoE models granite-moe-3b-a800m (GQA) and deepseek-v2-lite-16b
+(MLA)) and the recsys model bst.
 
-Counterpart of the LM branch of ``repro.launch.serve``: random weights
-from seed 0, a random prompt, token-by-token prefill through
-``decode_step`` (exercising the cache), then greedy decode. Prints the
-same ``prefill … tok/s`` and ``sample:`` lines. Runs on the card unless
-``--device cpu`` is given, and raises without one. The recsys (BST)
-branch comes with a later slice.
+Counterpart of ``repro.launch.serve``. LMs: random weights from seed 0, a
+random prompt, token-by-token prefill through ``decode_step`` (exercising
+the cache), then greedy decode; the same ``prefill … tok/s`` and
+``sample:`` lines. BST: random weights from seed 0 and
+``--decode-steps`` batches of ``--batch`` rows of ``RecsysStream``
+scored by ``bst_serve``; the same ``req/s`` and ``mean CTR`` line. Runs
+on the card unless ``--device cpu`` is given, and raises without one.
 """
 
 from __future__ import annotations
@@ -61,6 +66,27 @@ def serve_loop(model, prompt: torch.Tensor, decode_steps: int,
             "logits": torch.stack(step_logits), "seconds": seconds}
 
 
+def serve_recsys(cfg, batch: int, steps: int, dev):
+    """The BST serving loop: ``steps`` batches of ``batch`` rows of
+    ``RecsysStream`` (made on the host, moved to ``dev``) scored by
+    ``bst_serve`` on weights from seed 0. Returns the last batch's CTRs
+    and the loop's seconds (host clock, synchronised on a card)."""
+    from ..data.pipelines import RecsysStream
+    from ..models.bst import bst_serve, init_bst_params
+    from ..train.loop import to_device
+    model = init_bst_params(cfg, seed=0, device=dev)
+    stream = RecsysStream(cfg.n_items, cfg.n_user_feats, cfg.seq_len,
+                          cfg.user_feat_len, batch)
+    with torch.inference_mode():
+        t0 = time.time()
+        for i in range(steps):
+            scores = bst_serve(model, to_device(stream.batch(i), dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds = time.time() - t0
+    return scores, seconds
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b")
@@ -82,6 +108,13 @@ def main(argv=None):
         spec = spec.smoke()
     cfg = spec.model_cfg
     dev = resolve_device(args.device)
+
+    if spec.family == "recsys":
+        scores, dt = serve_recsys(cfg, args.batch, args.decode_steps, dev)
+        print(f"{args.decode_steps} batches of {args.batch}: {dt:.2f}s "
+              f"({args.decode_steps * args.batch / dt:.0f} req/s); "
+              f"mean CTR {float(scores.mean()):.3f}")
+        return scores
 
     rng = np.random.default_rng(0)
     model = init_params(cfg, seed=0, device=dev)

@@ -24,6 +24,26 @@ with its parameter names, shapes and semantics:
        a repeat gives the same bits. (The reference scatter-adds in the
        activation dtype, in an order XLA picks.)
 
+Training: the gather (3.) and the combine (4.) are
+``torch.autograd.Function`` classes whose backward passes are gathers by
+the inverse maps, not the ``index_put_(accumulate=True)`` that autograd over
+indexing runs (atomic on the card, or slow under
+``torch.use_deterministic_algorithms``). The dispatch is a permutation
+plus drops: each slot holds at most one (token, choice) and each
+(token, choice) at most one row, so
+
+    d y[slot]     = g[token] * gate[token, choice] (activation dtype) for
+                    the slot's owner, 0 for a slot without one and for the
+                    drop row ``E * cap``;
+    d gates[t, c] = sum over D of g[t] * y[rows[t, c]] (activation dtype,
+                    as autograd rounds the forward's product);
+    d xf[t]       = sum over c of d xin[rows[t, c]], in f32 in a fixed
+                    order, cast once (0 for a dropped choice).
+
+The router gets its gradient through the normalised top-k gates and the
+aux loss, as ``jax.grad`` of the reference does. :func:`gather_plain` and
+:func:`combine_plain` are the plain versions: autograd over the indexing.
+
 Shared experts (DeepSeek-MoE) run as a dense SwiGLU of width
 ``d_ff * n_shared`` on every token and are added after the combine.
 """
@@ -59,12 +79,73 @@ class Routing(NamedTuple):
 
 class Dispatch(NamedTuple):
     """Where the assignments go: ``slot_tok`` [E, cap] int64 token ids
-    (``n_tok`` where empty) and ``rows`` [n_tok, k] int64, each
+    (``n_tok`` where empty), ``rows`` [n_tok, k] int64, each
     assignment's row of the flattened ``[E * cap]`` expert outputs
-    (``E * cap``, a zero row, where it was dropped)."""
+    (``E * cap``, a zero row, where it was dropped), and ``slot_asg``
+    [E * cap + 1] int64, the inverse of ``rows``: each row's assignment
+    ``token * k + choice`` (``n_tok * k`` for an empty slot and for the
+    drop row); ``slot_tok == slot_asg[:-1] // k``."""
     slot_tok: torch.Tensor
     rows: torch.Tensor
     cap: int
+    slot_asg: torch.Tensor
+
+
+class _GatherSlots(torch.autograd.Function):
+    """``xin = [xf; 0][slot_tok]`` -> [E, cap, D]; backward: each token
+    sums its k rows of the gradient in f32 (see the module's header)."""
+
+    @staticmethod
+    def forward(ctx, xf, slot_tok, rows):
+        e, cap = slot_tok.shape
+        ctx.save_for_backward(rows)
+        xpad = torch.cat([xf, xf.new_zeros((1, xf.shape[1]))])
+        return xpad[slot_tok.reshape(-1)].view(e, cap, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, = ctx.saved_tensors
+        d = g.shape[-1]
+        gpad = torch.cat([g.reshape(-1, d), g.new_zeros((1, d))])
+        return (gpad[rows].sum(dim=1, dtype=torch.float32).to(g.dtype),
+                None, None)
+
+
+class _CombineRows(torch.autograd.Function):
+    """``out[t] = sum_c y[rows[t, c]] * gates[t, c]`` (each product in
+    y's dtype, the sum in f32, cast once); backward by the inverse map
+    ``slot_asg`` (see the module's header)."""
+
+    @staticmethod
+    def forward(ctx, y, gates, rows, slot_asg):
+        ctx.save_for_backward(y, gates, rows, slot_asg)
+        yk = y[rows] * gates.to(y.dtype)[..., None]     # [n_tok, k, D]
+        return yk.sum(dim=1, dtype=torch.float32).to(y.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, gates, rows, slot_asg = ctx.saved_tensors
+        g = g.to(y.dtype)
+        d = g.shape[-1]
+        ga = g[:, None, :] * gates.to(y.dtype)[..., None]   # [n_tok, k, D]
+        gapad = torch.cat([ga.reshape(-1, d), ga.new_zeros((1, d))])
+        dy = gapad[slot_asg]                                # [E * cap + 1, D]
+        dgates = (g[:, None, :] * y[rows]).sum(dim=-1).to(gates.dtype)
+        return dy, dgates, None, None
+
+
+def gather_plain(xf: torch.Tensor, disp: Dispatch) -> torch.Tensor:
+    """:meth:`MoE.gather` by plain indexing (autograd's backward)."""
+    e, cap = disp.slot_tok.shape
+    xpad = torch.cat([xf, xf.new_zeros((1, xf.shape[1]))])
+    return xpad[disp.slot_tok.reshape(-1)].view(e, cap, -1)
+
+
+def combine_plain(y: torch.Tensor, gates: torch.Tensor,
+                  disp: Dispatch) -> torch.Tensor:
+    """:meth:`MoE.combine` by plain indexing (autograd's backward)."""
+    yk = y[disp.rows] * gates.to(y.dtype)[..., None]
+    return yk.sum(dim=1, dtype=torch.float32).to(y.dtype)
 
 
 class MoE(nn.Module):
@@ -111,16 +192,23 @@ class MoE(nn.Module):
         order = torch.sort(flat, stable=True).indices
         se = flat[order]
         first = torch.searchsorted(se, se, side="left")
-        slot = torch.arange(n_tok * k, device=flat.device) - first
+        asg = torch.arange(n_tok * k, device=flat.device)
+        slot = asg - first
         keep = slot < cap
         dest = torch.where(keep, se * cap + slot, e * cap)
-        slot_tok = torch.full((e * cap + 1,), n_tok, dtype=torch.long,
+        # a dropped assignment's write goes to a spare entry of its own, so
+        # every index is written once (the deterministic index_put_ walks
+        # a run of equal indices serially)
+        none = n_tok * k
+        slot_asg = torch.full((e * cap + none,), none, dtype=torch.long,
                               device=flat.device)
-        slot_tok[dest] = torch.where(keep, order // k, n_tok)
+        slot_asg[torch.where(keep, dest, e * cap + asg)] = order
+        slot_asg = slot_asg[:e * cap + 1]
+        slot_asg[e * cap] = none            # the drop row
         rows = torch.empty_like(dest)
         rows[order] = dest                  # order is a permutation
-        return Dispatch(slot_tok[:e * cap].view(e, cap),
-                        rows.view(n_tok, k), cap)
+        return Dispatch((slot_asg[:e * cap] // k).view(e, cap),
+                        rows.view(n_tok, k), cap, slot_asg)
 
     def aux_loss(self, r: Routing) -> torch.Tensor:
         """Switch load balance: ``w * E * sum_e mean_prob_e *
@@ -133,10 +221,9 @@ class MoE(nn.Module):
 
     def gather(self, xf: torch.Tensor, disp: Dispatch) -> torch.Tensor:
         """The expert inputs ``[E, cap, D]``: the rows of ``xf``
-        [n_tok, D] by the slot table, zeros in empty slots."""
-        e, cap = disp.slot_tok.shape
-        xpad = torch.cat([xf, xf.new_zeros((1, xf.shape[1]))])
-        return xpad[disp.slot_tok.reshape(-1)].view(e, cap, -1)
+        [n_tok, D] by the slot table, zeros in empty slots. Its backward
+        is a gather by ``rows`` (no atomics)."""
+        return _GatherSlots.apply(xf, disp.slot_tok, disp.rows)
 
     def expert_ffn(self, xin: torch.Tensor) -> torch.Tensor:
         """Each expert's SwiGLU on its ``[cap, D]`` slots, as batched
@@ -147,13 +234,12 @@ class MoE(nn.Module):
         return torch.cat([y.flatten(0, 1), y.new_zeros((1, y.shape[2]))])
 
     def combine(self, y: torch.Tensor, gates: torch.Tensor,
-                rows: torch.Tensor) -> torch.Tensor:
+                disp: Dispatch) -> torch.Tensor:
         """``[n_tok, D]``: each token's k expert rows of ``y``, each times
         its gate in y's dtype, summed over the k choices in f32 and cast
-        once to y's dtype. Deterministic (a gather and a reduction, no
-        atomics)."""
-        yk = y[rows] * gates.to(y.dtype)[..., None]     # [n_tok, k, D]
-        return yk.sum(dim=1, dtype=torch.float32).to(y.dtype)
+        once to y's dtype. Deterministic, forward and backward (gathers
+        and reductions, no atomics)."""
+        return _CombineRows.apply(y, gates, disp.rows, disp.slot_asg)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [B, T, D] -> (out [B, T, D] in x's dtype, aux f32 scalar)."""
@@ -162,7 +248,7 @@ class MoE(nn.Module):
         r = self.route(xf)
         disp = self.dispatch(r.experts)
         y = self.expert_ffn(self.gather(xf, disp))
-        out = self.combine(y, r.gates, disp.rows).view(b, t, d)
+        out = self.combine(y, r.gates, disp).view(b, t, d)
         if self.shared is not None:
             out = out + self.shared(x)
         return out, self.aux_loss(r)

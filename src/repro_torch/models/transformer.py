@@ -17,9 +17,10 @@ Step functions:
 
     forward        tokens [B, T] -> (logits [B, T, V], aux, caches); aux
                    is the MoE layers' summed load-balance loss
-    loss_fn        mean next-token cross entropy + aux of a batch (training;
-                   MoE and MLA models on the CPU only, see
-                   :func:`check_trainable`)
+    loss_fn        mean next-token cross entropy + aux of a batch (training,
+                   every model: MLA through the flash backward at q/k 192
+                   and v 128, MoE through the layer's gather-based
+                   backward)
     decay_mask     which parameters AdamW decays (the reference's layout)
     prefill_step   full-sequence causal forward through the flash kernel;
                    the head is applied to the last position only
@@ -142,18 +143,6 @@ class LMConfig:
                + ffn_dense * self.first_dense_layers) / L
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
         return int(L * (attn + ffn + 2 * d) + emb + d)
-
-
-def check_trainable(cfg: LMConfig, device) -> None:
-    """Raise ``NotImplementedError`` for an MoE or MLA model on the card:
-    their training comes with the MoE/MLA training slice (the flash
-    backward takes ``dqk == dv <= 128``, and their gradients are not yet
-    held against the reference). The CPU runs them."""
-    if (cfg.moe or cfg.attn_kind == "mla") and \
-            torch.device(device).type == "cuda":
-        raise NotImplementedError(
-            f"{cfg.name}: training MoE and MLA models on the card comes "
-            "with the MoE/MLA training slice of the port")
 
 
 class Block(nn.Module):
@@ -283,9 +272,7 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
     model's device: ``(ce + aux, {"ce": ce, "aux": aux})`` with ``ce``
     the mean softmax cross entropy of the logits, as the reference's
     ``loss_fn``. Call it with autograd on (not under ``inference_mode``):
-    the kernels then run with their backward kernels. An MoE or MLA model
-    on the card raises (:func:`check_trainable`)."""
-    check_trainable(model.cfg, model.embed.device)
+    the kernels then run with their backward kernels."""
     logits, aux, _ = forward(model, batch["tokens"], attn_impl=attn_impl,
                              norm_impl=norm_impl)
     ce = softmax_cross_entropy(logits, batch["labels"])

@@ -22,7 +22,9 @@ with exact launch counts). The backward kernels against their plain
 f32 formulas: 1e-4 x max|want| in f32, 1e-2 x max|want| (flash) and one
 bf16 ulp plus 1e-6 x max|want| (rmsnorm) in bf16; both bit-equal from
 launch to launch, the flash backward's bf16 body (``wgmma``) at ragged T,
-d of 16 to 128 and every GQA group, rmsnorm's on both of its bodies.
+d of 16 to 128 and every GQA group, and at q/k wider than v (MLA's 192 and
+128 on the layer's layouts, every pair of box counts), rmsnorm's on both
+of its bodies and at the MoE models' widths (512, 1536, 2048).
 """
 
 import numpy as np
@@ -183,6 +185,59 @@ def _offset_view(t: torch.Tensor) -> torch.Tensor:
     view = torch.empty(t.numel() + 1, dtype=t.dtype,
                        device=t.device)[1:].view(t.shape)
     return view.copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dqk,dv,b,h,hkv,tq,tk,causal,layout", [
+    (192, 128, 2, 16, 16, 300, 300, True, "mla"),   # MLA as the layer
+    (192, 128, 1, 16, 16, 1000, 1000, True, "dense"),
+    (192, 128, 2, 4, 4, 300, 200, True, "mla"),     # rows that see no key
+    (192, 128, 1, 4, 4, 200, 333, False, "mla"),
+    (48, 32, 2, 4, 4, 130, 130, True, "mla"),       # the smoke config's
+    (64, 64, 2, 14, 2, 257, 257, True, "dense"),
+    (128, 64, 1, 6, 2, 1000, 1000, True, "dense"),
+    (64, 128, 1, 6, 2, 1000, 1000, True, "dense"),
+    (192, 64, 1, 6, 2, 130, 1000, True, "dense"),   # decode offset
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_unequal_widths(card, dqk, dv, b, h, hkv, tq,
+                                            tk, causal, layout, dtype):
+    """The backward at q/k wider than v (MLA's (192, 128): 32-query steps
+    in the dk/dv kernel and 64-key tiles in the dq kernel of the bf16
+    body) and at every other pair of box counts, on MLA's layouts (q a
+    head-major view, k a concatenation with the expanded rope, v a view of
+    a wider row) or dense tensors: within 1e-4 x max|want| (f32) and 1e-2
+    x max|want| (bf16) of the plain f32 formulas, each gradient of its
+    input's shape, two launches bit-equal."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=card).manual_seed(dqk + dv + tq + tk)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=card).to(dtype)
+    if layout == "mla":
+        nope = dqk - 64 if dqk == 192 else dqk - 16
+        q = rand(b, tq, h, dqk).transpose(1, 2)
+        kv = rand(b, tk, h, nope + dv)
+        rope = rand(b, tk, 1, dqk - nope)
+        k = torch.cat([kv[..., :nope], rope.expand(b, tk, h, dqk - nope)],
+                      dim=-1).transpose(1, 2)
+        v = kv[..., nope:].transpose(1, 2)
+    else:
+        q, k, v = rand(b, h, tq, dqk), rand(b, hkv, tk, dqk), \
+            rand(b, hkv, tk, dv)
+    out, lse = fa.flash_attention_lse_cuda(q, k, v, causal)
+    dout = rand(*out.shape)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal)
+    want = ref.flash_attention_backward(q.float(), k.float(), v.float(),
+                                        out.float(), lse, dout.float(),
+                                        causal)
+    rel = 1e-4 if dtype == torch.float32 else 1e-2
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        torch.testing.assert_close(g.float(), w, rtol=0,
+                                   atol=rel * float(w.abs().max()))
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 @pytest.mark.cuda
@@ -421,8 +476,9 @@ def test_flash_attention_unequal_widths_vs_plain(card, dqk, dv, b, hq, hkv,
 
 @pytest.mark.cuda
 def test_flash_attention_refuses_widths_past_its_limits(card):
-    """dqk past 192 or dv past 128 (or not a multiple of 8) raises; the
-    backward kernel takes dqk == dv <= 128 only."""
+    """dqk past 192 or dv past 128 (or not a multiple of 8) raises, in the
+    forward and in the backward; the backward takes MLA's (192, 128) and
+    refuses an output or its gradient of another width than v's."""
     from repro_torch.kernels import flash_attention as fa
 
     def z(*shape, dtype=torch.bfloat16):
@@ -437,8 +493,13 @@ def test_flash_attention_refuses_widths_past_its_limits(card):
                                     z(1, 2, 8, dv, dtype=dtype))
     q, k, v = z(1, 2, 8, 192), z(1, 2, 8, 192), z(1, 2, 8, 128)
     out, lse = fa.flash_attention_lse_cuda(q, k, v)
-    with pytest.raises(ValueError, match="backward"):
-        fa.flash_attention_bwd_cuda(q, k, v, out, lse, out)
+    dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, lse, out)
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    with pytest.raises(ValueError, match="dout"):
+        fa.flash_attention_bwd_cuda(q, k, v, out, lse, q)
+    with pytest.raises(ValueError, match="dqk"):
+        fa.flash_attention_bwd_cuda(z(1, 2, 8, 200), z(1, 2, 8, 200), v,
+                                    out, lse, out)
 
 
 @pytest.mark.cuda
@@ -587,6 +648,59 @@ def test_flash_attention_bwd_bf16_body(card, b, hq, hkv, tq, tk, d, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dqk,dv,b,h,hkv,tq,tk,causal,layout", [
+    (192, 128, 2, 16, 16, 300, 300, True, "mla"),   # MLA as the layer
+    (192, 128, 1, 16, 16, 1000, 1000, True, "dense"),
+    (192, 128, 2, 4, 4, 300, 200, True, "mla"),     # rows that see no key
+    (192, 128, 1, 4, 4, 200, 333, False, "mla"),
+    (48, 32, 2, 4, 4, 130, 130, True, "mla"),       # the smoke config's
+    (64, 64, 2, 14, 2, 257, 257, True, "dense"),
+    (128, 64, 1, 6, 2, 1000, 1000, True, "dense"),
+    (64, 128, 1, 6, 2, 1000, 1000, True, "dense"),
+    (192, 64, 1, 6, 2, 130, 1000, True, "dense"),   # decode offset
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_unequal_widths(card, dqk, dv, b, h, hkv, tq,
+                                            tk, causal, layout, dtype):
+    """The backward at q/k wider than v (MLA's (192, 128): 32-query steps
+    in the dk/dv kernel and 64-key tiles in the dq kernel of the bf16
+    body) and at every other pair of box counts, on MLA's layouts (q a
+    head-major view, k a concatenation with the expanded rope, v a view of
+    a wider row) or dense tensors: within 1e-4 x max|want| (f32) and 1e-2
+    x max|want| (bf16) of the plain f32 formulas, each gradient of its
+    input's shape, two launches bit-equal."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=card).manual_seed(dqk + dv + tq + tk)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=card).to(dtype)
+    if layout == "mla":
+        nope = dqk - 64 if dqk == 192 else dqk - 16
+        q = rand(b, tq, h, dqk).transpose(1, 2)
+        kv = rand(b, tk, h, nope + dv)
+        rope = rand(b, tk, 1, dqk - nope)
+        k = torch.cat([kv[..., :nope], rope.expand(b, tk, h, dqk - nope)],
+                      dim=-1).transpose(1, 2)
+        v = kv[..., nope:].transpose(1, 2)
+    else:
+        q, k, v = rand(b, h, tq, dqk), rand(b, hkv, tk, dqk), \
+            rand(b, hkv, tk, dv)
+    out, lse = fa.flash_attention_lse_cuda(q, k, v, causal)
+    dout = rand(*out.shape)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal)
+    want = ref.flash_attention_backward(q.float(), k.float(), v.float(),
+                                        out.float(), lse, dout.float(),
+                                        causal)
+    rel = 1e-4 if dtype == torch.float32 else 1e-2
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        torch.testing.assert_close(g.float(), w, rtol=0,
+                                   atol=rel * float(w.abs().max()))
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rows,d,offset", [
     (16384, 896, False), (4, 896, False), (1, 896, False), (0, 896, False),
     (33, 2048, False), (5, 3072, False), (3, 8192, False), (2000, 64, False),
@@ -630,7 +744,9 @@ def test_rmsnorm_bwd_bodies_vs_plain(card, rows, d, offset, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,d", [(4, 896), (1000, 896), (7, 1001),
-                                    (33, 2048), (3, 8192), (2000, 64)])
+                                    (33, 2048), (3, 8192), (2000, 64),
+                                    (16384, 512), (16384, 1536),
+                                    (16384, 2048)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_bwd_kernel_vs_plain(card, rows, d, dtype):
     """dx and dgamma == ``ref.rmsnorm_backward`` in f32: 1e-4 x max|want|

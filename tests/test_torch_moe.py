@@ -13,8 +13,15 @@
   unequal head widths), its absorbed decode and caches step by step.
 * the plain ``flash_attention`` with ``dqk != dv`` against the
   reference's ``blockwise_attention``, and its backward formulas against
-  autograd; the layout of the kernel's output and the MLA layer's v view
+  autograd (also through ``FlashAttentionFn`` on the MLA layer's
+  layouts); the layout of the kernel's output and the MLA layer's v view
   (read in place) are checked on the CPU.
+* the MoE layer's backward (gather and combine as autograd Functions
+  whose backward passes are gathers by the inverse maps) against autograd
+  over the plain indexing: f32 gradients within 1e-6 (sums in another
+  order), bf16 within one bf16 ulp of the larger plus 1e-6 (the token
+  gradient sums its k rows in f32, autograd's scatter in bf16), the slot
+  and gate gradients bit-equal, and a repeat bit-equal.
 """
 
 import functools
@@ -33,6 +40,7 @@ from repro.models.transformer import LMConfig as JaxLMConfig
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.layers.attention import MLAAttention, init_mla_cache
+from repro_torch.layers import moe as tmoe
 from repro_torch.layers.moe import MoE, capacity
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -263,3 +271,95 @@ def test_kernel_output_layout_and_mla_v_view():
         assert fa.view_strides("v", v) == (9 * 3 * 64, 64, 3 * 64)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_cuda(q, q, q[..., :32])
+
+
+def _flash_fn_layouts(dtype):
+    """q, k, v as ``MLAAttention`` hands them to the flash op (q a
+    head-major view, k a concatenation with the expanded rope, v a view
+    of a wider row), at the deepseek smoke config's (48, 32)."""
+    gen = torch.Generator().manual_seed(4)
+    b, t, h, nope, rope, vd = 2, 13, 4, 32, 16, 32
+    q = torch.randn((b, t, h, nope + rope), generator=gen, dtype=dtype)
+    kv = torch.randn((b, t, h, nope + vd), generator=gen, dtype=dtype)
+    kr = torch.randn((b, t, 1, rope), generator=gen, dtype=dtype)
+    return q, kv, kr
+
+
+def test_flash_fn_plain_pair_takes_mla_layouts():
+    """``FlashAttentionFn`` with the plain pair on the MLA layer's
+    layouts: the gradients of q, of the latent product (through k's nope
+    half and v's view) and of the shared rope equal autograd through the
+    plain forward, at (dqk, dv) = (48, 32): f64 inputs, within 1e-5 (the
+    pair's backward formulas compute in f32)."""
+    grads = []
+    for fn in ("pair", "autograd"):
+        q, kv, kr = (x.requires_grad_() for x in _flash_fn_layouts(
+            torch.float64))
+        b, t, h = kv.shape[:3]
+        k = torch.cat([kv[..., :32], kr.expand(b, t, h, 16)], dim=-1)
+        args = (q.transpose(1, 2), k.transpose(1, 2),
+                kv[..., 32:].transpose(1, 2))
+        out = fa.FlashAttentionFn.apply(*args, True, None, fa.PLAIN_PAIR) \
+            if fn == "pair" else ref.flash_attention(*args, causal=True)
+        assert out.shape == (b, h, t, 32)
+        out.backward(torch.linspace(-1, 1, out.numel(),
+                                    dtype=torch.float64).view(out.shape))
+        grads.append([x.grad for x in (q, kv, kr)])
+    for got, want in zip(*grads):
+        assert got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _moe_grads(dtype, plain, n_shared, cf, seed=3):
+    gen = torch.Generator().manual_seed(seed)
+    moe = MoE(24, 6, 16, n_shared, 2, cf, dtype, gen)
+    x = (torch.randn((3, 10, 24), generator=gen) * 2).to(dtype)
+    x.requires_grad_()
+    if plain:
+        moe.gather = lambda xf, disp: tmoe.gather_plain(xf, disp)
+        moe.combine = lambda y, g, disp: tmoe.combine_plain(y, g, disp)
+    out, aux = moe(x)
+    g = torch.randn(out.shape, generator=gen).to(dtype)
+    (out.float() * g.float()).sum().add(aux).backward()
+    return {"x": x.grad, **{n: p.grad for n, p in moe.named_parameters()}}
+
+
+@pytest.mark.parametrize("n_shared,cf", [(0, 1.0), (2, 0.6)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_backward_functions_equal_plain_autograd(dtype, n_shared, cf):
+    """cf 0.6 drops assignments (their rows take no gradient); a repeat
+    of the Functions' backward gives the same bits."""
+    got = _moe_grads(dtype, False, n_shared, cf)
+    want = _moe_grads(dtype, True, n_shared, cf)
+    assert sorted(got) == sorted(want)
+    for name, g in got.items():
+        w = want[name]
+        assert g.dtype == w.dtype, name
+        tol = 1e-6 if dtype == torch.float32 else \
+            1e-6 + 2.0 ** -7 * float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=tol,
+                                   msg=name)
+    again = _moe_grads(dtype, False, n_shared, cf)
+    assert all(torch.equal(got[n], again[n]) for n in got)
+
+
+def test_moe_dispatch_inverse_map():
+    """``slot_asg`` inverts ``rows``: every kept assignment's row names
+    it, every other row (empty slots, the drop row) names ``n_tok * k``,
+    and ``slot_tok`` is its token."""
+    gen = torch.Generator().manual_seed(0)
+    moe = MoE(8, 5, 4, 0, 2, 0.7, torch.float32, gen)
+    experts = torch.randint(0, 5, (23, 2), generator=gen)
+    disp = moe.dispatch(experts)
+    n_asg = experts.numel()
+    assert disp.slot_asg.shape == (disp.slot_tok.numel() + 1,)
+    kept = disp.rows.reshape(-1) < disp.slot_tok.numel()
+    asg = torch.arange(n_asg)
+    assert torch.equal(disp.slot_asg[disp.rows.reshape(-1)[kept]],
+                       asg[kept])
+    owned = torch.zeros(disp.slot_asg.shape, dtype=torch.bool)
+    owned[disp.rows.reshape(-1)[kept]] = True
+    assert bool((disp.slot_asg[~owned] == n_asg).all())
+    assert torch.equal(disp.slot_tok.reshape(-1),
+                       disp.slot_asg[:-1] // 2)
+    assert int((~kept).sum()) > 0

@@ -91,6 +91,30 @@ def test_config_widths_take_the_register_body(arch, dtype):
                                True) == ("register", 8, 1, 8, 2048)
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_moe_and_mla_widths_take_a_register_body_the_backward_runs(arch,
+                                                                  dtype):
+    """The MoE models' block norms (1536, 2048) and MLA's latent norm
+    (512) plan the register body, forward and backward, at the training
+    and decode rows: one or two warps a row, which
+    ``csrc/rmsnorm_bwd.cu`` instantiates (1, 2, 4 or 8), every row in
+    some chunk."""
+    cfg = get_config(arch).model_cfg
+    widths = [cfg.d_model] + ([cfg.kv_lora_rank]
+                              if cfg.attn_kind == "mla" else [])
+    assert widths in ([1536], [2048, 512])
+    for d in widths:
+        for R in (4, 16384):
+            plan = rn.rmsnorm_plan(R, d, DTYPES[dtype], True)
+            assert plan.body == "register" and plan.warps in (1, 2, 4, 8)
+            assert 32 * plan.warps * rn.SLOTS * plan.vec >= d
+            chunks = rn.bwd_chunks(R, plan)
+            assert 1 <= chunks <= min(R, rn.BWD_CHUNKS)
+            assert -(-R // -(-R // chunks)) == chunks
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_other_inputs_take_the_block_body(dtype):
     dt = DTYPES[dtype]

@@ -2,11 +2,13 @@
 
 Loss and gradients: the JAX package's init (with seeded noise on the QKV
 biases and norm gains, which it initialises to 0 and 1) is carried across
-(``lm_state_dict_from_numpy``); ``loss_fn`` and every parameter's gradient
-of the port (plain versions, remat on and off) must equal
+(``lm_state_dict_from_numpy``); ``loss_fn``, its aux loss and every
+parameter's gradient of the port (plain versions, remat on and off; the
+MoE models through the layer's gather-based backward) must equal
 ``jax.value_and_grad(repro.models.transformer.loss_fn)`` with blockwise
-attention and the jnp rmsnorm (the Pallas kernels have no VJP), at 2e-4 as
-``tests/test_torch_lm.py`` holds the forward. One AdamW step from a state
+attention (the Pallas kernel cannot take MLA) and the jnp rmsnorm (the
+Pallas kernels have no VJP), at 2e-4 as ``tests/test_torch_lm.py`` holds
+the forward. One AdamW step from a state
 carried by ``adamw_state_from_numpy`` equals the reference's: f32 at 1e-6,
 bf16 within one bf16 ulp. The data streams and graph batches are
 bit-equal. Checkpoint/restart mirrors ``tests/test_train.py``. The int8
@@ -51,7 +53,8 @@ from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.loop import TrainLoopConfig, run_training
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ["qwen2-0.5b", "qwen2.5-3b", "phi4-mini-3.8b"]
+ARCHS = ["qwen2-0.5b", "qwen2.5-3b", "phi4-mini-3.8b",
+         "granite-moe-3b-a800m", "deepseek-v2-lite-16b"]
 TOL = dict(rtol=2e-4, atol=2e-4)
 OPT = dict(lr=1e-2, warmup_steps=1, decay_steps=50, weight_decay=0.1)
 
@@ -83,14 +86,19 @@ def _jax_params(arch, dtype=jnp.float32):
                                dtype=dtype)
     params = _np(jtf.init_params(jax.random.PRNGKey(1), jcfg))
     rng = np.random.default_rng(len(arch))
-    stack = params["dense_layers"]
+    stacks = [params[k] for k in ("dense_layers", "moe_layers")
+              if k in params]
     for name in ("bq", "bk", "bv"):
-        if name in stack["attn"]:
-            a = stack["attn"][name]
-            stack["attn"][name] = (a + 0.3 * rng.normal(size=a.shape)
-                                   ).astype(a.dtype)
-    for owner, name in ((stack, "norm1"), (stack, "norm2"),
-                        (params, "final_norm")):
+        if name in stacks[0]["attn"]:
+            a = stacks[0]["attn"][name]
+            stacks[0]["attn"][name] = (a + 0.3 * rng.normal(size=a.shape)
+                                       ).astype(a.dtype)
+    gains = [(stacks[0], "norm1"), (stacks[0], "norm2"),
+             (params, "final_norm")]
+    gains += [(st, name) for st in stacks[1:] for name in ("norm1", "norm2")]
+    gains += [(st["attn"], "norm_ckv") for st in stacks
+              if "norm_ckv" in st["attn"]]
+    for owner, name in gains:
         a = owner[name]
         owner[name] = (a + 0.2 * rng.normal(size=a.shape)).astype(a.dtype)
     return params, jcfg
@@ -137,7 +145,8 @@ def _jax_loss_and_grads(arch):
     (loss, metrics), grads = jax.value_and_grad(
         lambda p: jtf.loss_fn(p, b, jcfg, attn_impl="blockwise"),
         has_aux=True)(jax.tree.map(jnp.asarray, params))
-    return float(loss), float(metrics["ce"]), _np(grads)
+    return (float(loss), float(metrics["ce"]), float(metrics["aux"]),
+            _np(grads))
 
 
 @pytest.mark.parametrize("remat", [False, True])
@@ -152,10 +161,11 @@ def test_loss_and_every_gradient_equal_jax(arch, remat):
              for k, v in _batch(tcfg.vocab).items()}
     loss, metrics = ttf.loss_fn(model, batch)
     loss.backward()
-    want_loss, want_ce, jgrads = _jax_loss_and_grads(arch)
+    want_loss, want_ce, want_aux, jgrads = _jax_loss_and_grads(arch)
     np.testing.assert_allclose(loss.item(), want_loss, **TOL)
     np.testing.assert_allclose(metrics["ce"].item(), want_ce, **TOL)
-    assert float(metrics["aux"]) == 0.0
+    np.testing.assert_allclose(metrics["aux"].item(), want_aux, **TOL)
+    assert (want_aux > 0) == tcfg.moe
     want = lm_state_dict_from_numpy(jgrads, tcfg)
     got = {n: p.grad for n, p in model.named_parameters()}
     assert sorted(got) == sorted(want)
@@ -436,9 +446,11 @@ def test_entry_points_without_a_device_raise_when_no_card(monkeypatch):
     from repro_torch.launch.train import main
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--smoke", "--steps", "1"])
-    for arch in ("bst", "gin-tu"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            main(["--arch", arch, "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="slice"):
+        main(["--arch", "gin-tu", "--device", "cpu"])
+    hist = main(["--arch", "bst", "--smoke", "--device", "cpu", "--steps",
+                 "2", "--batch", "8"])
+    assert len(hist["loss"]) == 2 and all(map(np.isfinite, hist["loss"]))
 
 
 def test_train_cli_lowers_the_loss():
