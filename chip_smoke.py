@@ -118,8 +118,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    backwards, 2nL + 1 rmsnorm forwards and nL + 1 backwards (n = 2 norms
    a layer, 3 with MLA's latent norm). Then ``MOE_TRAIN_STEPS`` AdamW
    steps with a checkpoint and a failed-and-resumed run that must equal
-   the uninterrupted one bit for bit (at ``MOE_RESTART_LAYERS``: 8 and 2
-   layers, checkpoints of ~8 and ~10 GiB), ``MOE_TIMED_STEPS`` steps at
+   the uninterrupted one bit for bit (at ``MOE_RESTART_LAYERS``: 4 and 2
+   layers, checkpoints of ~4 and ~10 GiB), ``MOE_TIMED_STEPS`` steps at
    full depth from seed 0 (tok/s, peak memory; the loss must fall) and a
    profiled step (busy share, device time by kind of kernel, the flash
    backward's share);
@@ -133,7 +133,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``BST_TOL`` of an f64 CPU run of the same weights on
    ``BST_CHECK_ROWS`` rows and candidates. BST runs no kernel of the
    port (attention at d_head 4 stays plain matrix products, as in the
-   JAX package).
+   JAX package);
+13. the GNN family at full width, last, inside phase 8's NCCL world of
+   one, under deterministic algorithms (``phase_gnn``): gin-tu, pna,
+   egnn and meshgraphnet at ``full_graph_sm`` and ``molecule`` (a step's
+   loss and every gradient against an f64 CPU run of the same weights,
+   within ``GNN_TOL`` or twice the f32 CPU run's own distance; then
+   ``GNN_STEPS`` AdamW steps, the loss falling) and at ``minibatch_lg``
+   (blocks of the ported ``MinibatchGraphStream``), each with s per step,
+   nodes and edges per second, peak memory and a profiled step (busy
+   share, the scatters' share); gin-tu's checkpoint restart bit-exact;
+   ``launch/train.py --arch gin-tu``; ``gnn_dist`` on the NCCL rank equal
+   to ``gnn_loss`` at ``full_graph_sm``, then gin-tu at ``ogb_products``
+   (2,449,408 nodes, 123,718,280 edges) in bf16 with remat, the bytes of
+   the three archs that do not fit logged; ``examples/
+   motif_features_torch.py`` on the card, its per-vertex motif counts
+   equal to a CPU run's. The GNNs run no kernel of the port (their
+   segment sums are plain PyTorch, as they are plain jnp in the JAX
+   package).
 
 Phase 1 also counts the HGMMA (``wgmma``) instructions in the SASS of
 both flash libraries, forward and backward (``cuobjdump``), and fails if
@@ -237,11 +254,12 @@ F32_BY_LAYER = ("deepseek-v2-lite-16b",)
 # its checkpoint/restart run, MOE_TRAIN_STEPS steps with a checkpoint
 # every MOE_TRAIN_CKPT_EVERY
 # (a checkpoint of granite's 32 layers, bf16 weights and f32 moments, is
-# 30.7 GiB and takes 47 s to write: the restart runs at fewer layers), and
+# 30.7 GiB and takes 47 s to write: the restart runs at fewer layers; at 8
+# layers it took 31 s, so 4 keep the script inside its time limit), and
 # AdamW's rate (at 1e-3 the first updates raise both models' loss from
 # random init)
 MOE_TRAIN_LAYERS = {"granite-moe-3b-a800m": 32, "deepseek-v2-lite-16b": 4}
-MOE_RESTART_LAYERS = {"granite-moe-3b-a800m": 8, "deepseek-v2-lite-16b": 2}
+MOE_RESTART_LAYERS = {"granite-moe-3b-a800m": 4, "deepseek-v2-lite-16b": 2}
 MOE_TRAIN_STEPS, MOE_TRAIN_CKPT_EVERY, MOE_TIMED_STEPS = 3, 2, 4
 MOE_TRAIN_LR = 1e-4
 # phase 12: BST at full width (the config's 10^6 items, 10^5 user
@@ -285,6 +303,28 @@ SB_DELETE, SB_BATCH = 0.3, 4096
 # 4% of the rows replicated; the mid-size join patterns
 DIST_HOT = (0, int(OOC_HOT_FRAC * FULL_N))
 JOIN_PATTERNS = ("triangle", "square")
+# phase 13: the GNN family (configs/{gin_tu,pna,egnn,meshgraphnet}.py) at
+# the reference's cells: GNN_STEPS AdamW steps a full-batch cell at GNN_LR,
+# GNN_MB_STEPS sampled minibatch_lg blocks over powerlaw(232,965,
+# GNN_MB_DEGREE) (the cell fixes the vertices, not the degree: 8 edges a
+# new vertex gives a mean degree of 16, but most vertices have fewer
+# than 15 neighbours, so a block holds about 80,000 real nodes and
+# 240,000 real edges of its 169,984 / 337,920: a denser host graph, near
+# Reddit's, would take minutes to generate on the host), gin-tu's
+# restart over GNN_RESTART_STEPS with a checkpoint every
+# GNN_RESTART_EVERY, the train CLI for GNN_CLI_STEPS, gin-tu at
+# ogb_products for GNN_OGB_STEPS (at 1e-3, pna's and gin-tu's losses rose
+# over the first steps from random init); f32 on the card against f64 on
+# the CPU within GNN_TOL (BST_TOL's reasoning), each gradient by its L2
+# distance over its norm, or within LM_TOL_FLOORS x the same code's f32
+# CPU run's distance where f32 rounding alone moves this model's
+# gradients further (15 layers of MeshGraphNet; PNA's std at var ~ 0)
+GNN_ARCHS = ("gin-tu", "pna", "egnn", "meshgraphnet")
+GNN_SHAPES = ("full_graph_sm", "molecule", "minibatch_lg")
+GNN_STEPS, GNN_MB_STEPS, GNN_MB_DEGREE = 6, 4, 8
+GNN_RESTART_STEPS, GNN_RESTART_EVERY = 6, 3
+GNN_CLI_STEPS, GNN_OGB_STEPS = 20, 3
+GNN_LR, GNN_TOL = 1e-4, 1e-4
 
 
 @contextlib.contextmanager
@@ -3227,7 +3267,452 @@ def phase_sbenu_dist(dev, stream) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the GNN family trained at full width
+# ---------------------------------------------------------------------------
+
+
+def gnn_graph(spec, shape: str, cfg):
+    """The numpy batch of a full-batch cell: ``synthetic_mesh`` for node
+    regression, ``synthetic_full_graph`` of the cell's nodes and half its
+    (symmetrized) edges, or ``synthetic_molecules`` for ``molecule``;
+    seed 0, as the train CLI and the reference's launcher make them."""
+    from repro_torch.graph.batch import (synthetic_full_graph,
+                                         synthetic_mesh, synthetic_molecules)
+    dims = spec.shapes[shape].dims
+    if spec.shapes[shape].kind == "gnn_molecule":
+        per = dims["n_nodes"] // dims["n_graphs"]
+        gb = synthetic_molecules(dims["n_graphs"], per,
+                                 dims["n_edges"] // (2 * dims["n_graphs"]),
+                                 cfg.d_feat, cfg.n_out)
+    elif cfg.task == "node_reg":
+        gb = synthetic_mesh(dims["n_nodes"], dims["n_edges"], cfg.d_feat,
+                            cfg.d_edge)
+    else:
+        gb = synthetic_full_graph(dims["n_nodes"], dims["n_edges"] // 2,
+                                  cfg.d_feat, cfg.n_out)
+    return gb
+
+
+def minibatch_stream(spec, cfg_reg) -> list:
+    """``GNN_MB_STEPS`` sampled blocks of ``minibatch_lg`` from the ported
+    ``MinibatchGraphStream`` over ``powerlaw(graph_nodes, GNN_MB_DEGREE)``
+    with seeded features and labels; each block also gets seeded
+    positions, edge features and regression targets (as
+    ``synthetic_mesh`` makes them), which EGNN and MeshGraphNet read and
+    the others ignore: the stream samples none of them."""
+    import numpy as np
+    from repro_torch.data.pipelines import MinibatchGraphStream
+    from repro_torch.graph.generate import powerlaw
+    dims = spec.shapes["minibatch_lg"].dims
+    t0 = time.perf_counter()
+    with gc_paused():
+        g = powerlaw(dims["graph_nodes"], GNN_MB_DEGREE, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    feats = rng.normal(size=(g.n, dims["d_feat"])).astype(np.float32)
+    labels = rng.integers(0, dims["n_classes"], g.n).astype(np.int32)
+    t_graph = time.perf_counter() - t0
+    stream = MinibatchGraphStream(
+        graph=g, feats=feats, labels=labels,
+        batch_nodes=dims["batch_nodes"],
+        fanouts=(dims["fanout1"], dims["fanout2"]),
+        n_max=dims["n_nodes"], e_max=dims["n_edges"], seed=SEED)
+    t0 = time.perf_counter()
+    batches = []
+    for step in range(GNN_MB_STEPS):
+        b = stream.batch(step)
+        r = np.random.default_rng(SEED + 1 + step)
+        b["edge_attr"] = r.normal(size=(dims["n_edges"], cfg_reg.d_edge)
+                                  ).astype(np.float32)
+        b["targets"] = r.normal(size=(dims["n_nodes"], cfg_reg.n_out)
+                                ).astype(np.float32)
+        b["pos"] = r.normal(size=(dims["n_nodes"], 3)).astype(np.float32)
+        batches.append(b)
+    real = [int((b["edge_src"] < dims["n_nodes"]).sum()) for b in batches]
+    log(f"  minibatch_lg host graph powerlaw({g.n}, {GNN_MB_DEGREE}): "
+        f"{g.m} edges, features [{g.n}, {dims['d_feat']}], {t_graph:.1f} s; "
+        f"{GNN_MB_STEPS} blocks of {dims['batch_nodes']} targets, fan-out "
+        f"{dims['fanout1']}-{dims['fanout2']}, padded to "
+        f"{dims['n_nodes']} nodes / {dims['n_edges']} edges (real edges "
+        f"{real}, real nodes "
+        f"{[int(b['node_mask'].sum()) for b in batches]}): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return batches
+
+
+def scatter_shares(rows: list) -> str:
+    """The profiled step's device time in segment reductions (the sums,
+    maxima and minima by node), in gathers and index selects, and in
+    sorts (the edge index)."""
+    total = sum(r[0] for r in rows) or 1
+    kinds = {"segment reductions": ("segment",),
+             "gathers / index": ("index", "gather"),
+             "sorts": ("sort", "radix")}
+    out = []
+    for kind, keys in kinds.items():
+        us = sum(r[0] for r in rows
+                 if any(k in r[2].lower() for k in keys))
+        out.append(f"{kind} {us / 1e3:.3f} ms ({100 * us / total:.1f}%)")
+    return ", ".join(out)
+
+
+def gnn_f64(model):
+    """A float64 copy of a GNN on the CPU (the yardstick)."""
+    import copy
+    import torch
+    cpu = copy.deepcopy(model).to("cpu", torch.float64)
+    cpu.cfg = dataclasses.replace(model.cfg, dtype=torch.float64)
+    return cpu
+
+
+def gnn_grads(model, loss_fn, batch):
+    """(loss, {name: gradient}) of one backward, the model's gradients
+    cleared after."""
+    import torch
+    loss, _ = loss_fn(model, batch)
+    loss.backward()
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+def l2_dists(got: dict, want: dict) -> tuple:
+    """(the worst tensor's L2 distance over its L2 norm, its name; the
+    L2 distance of all the gradients as one vector over its norm)."""
+    d2 = {n: float(((got[n].double().cpu() - w) ** 2).sum())
+          for n, w in want.items()}
+    w2 = {n: float((w ** 2).sum()) for n, w in want.items()}
+    worst = max((math.sqrt(d2[n] / w2[n]) if w2[n] else
+                 (0.0 if d2[n] == 0 else math.inf), n) for n in want)
+    return worst, math.sqrt(sum(d2.values()) / max(sum(w2.values()),
+                                                   1e-300))
+
+
+def gnn_agree(tag: str, got: dict, want: dict, floor: tuple,
+              against: str = "f64") -> None:
+    """Each gradient's L2 distance from ``want`` over its norm, and all
+    the gradients' as one vector, within ``GNN_TOL`` or within
+    ``LM_TOL_FLOORS x`` the same measure of ``floor`` (the same code's
+    f32 CPU run against f64: how far f32 rounding alone moves this
+    model's gradients; per tensor its worst tensor's). Raises when
+    either is over both."""
+    (worst, name), total = l2_dists(got, want)
+    (f_worst, f_name), f_total = floor
+    tol_t = max(GNN_TOL, LM_TOL_FLOORS * f_worst)
+    tol_g = max(GNN_TOL, LM_TOL_FLOORS * f_total)
+    ok = worst <= tol_t and total <= tol_g
+    log(f"  {tag}: every gradient against {against}, L2 distance over "
+        f"norm: worst tensor {worst:.3g} ({name}; tolerance {tol_t:.3g}), "
+        f"all {total:.3g} (tolerance {tol_g:.3g}); the f32 CPU run's "
+        f"{f_worst:.3g} ({f_name}) and {f_total:.3g}: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{tag}: gradients off: {name} {worst}, all "
+                           f"{total}")
+
+
+def gnn_check(tag: str, model, batch_dev, index) -> dict:
+    """One step's loss and every gradient on the card (f32) against an
+    f64 CPU run of the same port code and weights (``GNN_TOL``, or the
+    floor of :func:`gnn_agree`: the f32 CPU run's distances from it).
+    Returns that floor."""
+    import copy
+    import torch
+    from repro_torch.models.gnn import gnn_loss
+    loss, got = gnn_grads(model, lambda m, b: gnn_loss(m, b, index),
+                          batch_dev)
+    cpu = {k: v.cpu() for k, v in batch_dev.items()}
+    ref64 = gnn_f64(model)
+    cpu64 = dict(cpu, x=cpu["x"].double())
+    loss64, want = gnn_grads(ref64, gnn_loss, cpu64)
+    cpu32 = copy.deepcopy(model).to("cpu")
+    _, f32 = gnn_grads(cpu32, gnn_loss, cpu)
+    floor = l2_dists(f32, want)
+    check_close(f"{tag}: the loss", loss.reshape(1), loss64.reshape(1),
+                GNN_TOL)
+    gnn_agree(tag, got, want, floor)
+    return floor
+
+
+def gnn_cell(arch: str, shape: str, dev, batches: list, check: bool
+             ) -> dict:
+    """``arch`` at ``shape`` on the card: a checked step against f64
+    (``check``), then ``len(batches)`` AdamW steps (the first a warm-up;
+    the same batch every step for a full-batch cell, its edge index
+    sorted once), s per step, nodes and edges per second, peak memory and
+    a profiled step. Returns what phase 13 reports of it."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.gnn import (gnn_decay_mask, gnn_loss,
+                                        graph_index, init_gnn_params)
+    from repro_torch.train.loop import to_device
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                             make_train_step)
+    cfg = get_config(arch).model_cfg_for(shape)
+    full = len(batches) == 1
+    first = to_device(batches[0], dev)
+    index = graph_index(first["edge_src"], first["edge_dst"],
+                        first["x"].shape[0]) if full else None
+    model = init_gnn_params(cfg, seed=SEED, device=dev)
+    floor = gnn_check(f"{arch} {shape}", model, first, index) if check \
+        else None
+    steps = GNN_STEPS if full else len(batches)
+    opt = AdamWConfig(lr=GNN_LR, warmup_steps=1, decay_steps=steps)
+    loss_fn = lambda m, b: gnn_loss(m, b, index)
+    step_fn = make_train_step(loss_fn, opt, decay=gnn_decay_mask(
+        dict(model.named_parameters())))
+    state = adamw_init(dict(model.named_parameters()))
+    losses, seconds, host = [], [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(steps):
+        t0 = time.perf_counter()
+        b = first if full else to_device(batches[i], dev)
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        model, state, metrics = step_fn(model, state, b)
+        losses.append(metrics["loss_total"].item())
+        seconds.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    s = statistics.mean(seconds[1:])
+    # the rates count each step's own real nodes (node_mask) and real
+    # edges (both endpoints below the padding id), not the padded shape
+    n_pad = batches[0]["x"].shape[0]
+    real = [(int(np.asarray(b["node_mask"]).sum()),
+             int(((np.asarray(b["edge_src"]) < n_pad)
+                  & (np.asarray(b["edge_dst"]) < n_pad)).sum()))
+            for b in batches]
+    real = real * steps if full else real
+    t_timed = sum(seconds[1:])
+    n_rate = sum(r[0] for r in real[1:steps]) / t_timed
+    e_rate = sum(r[1] for r in real[1:steps]) / t_timed
+    log(f"  {arch} {shape}: {cfg.n_params} parameters, d {cfg.d_hidden} x "
+        f"{cfg.n_layers}, padded to {n_pad} nodes and "
+        f"{batches[0]['edge_src'].shape[0]} edges, real (nodes, edges) "
+        f"{real[0] if full else real}; steps "
+        f"{[round(x, 4) for x in seconds]} s, {s:.4f} s a step (steps 2-"
+        f"{steps}), {n_rate:.0f} real nodes/s, {e_rate:.0f} real "
+        f"edges/s, peak {peak:.2f} GiB; losses "
+        f"{[round(x, 4) for x in losses]}"
+        + ("" if full else f"; the host batch to the card "
+           f"{statistics.mean(host):.4f} s a step besides"))
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{arch} {shape}: losses {losses}")
+    if full and not losses[-1] < losses[0]:
+        raise RuntimeError(f"{arch} {shape}: the loss did not fall: {losses}")
+    b = first if full else to_device(batches[-1], dev)
+    rows = device_profile(f"one {arch} {shape} step",
+                          lambda: step_fn(model, state, b))
+    log(f"    scatters: {scatter_shares(rows)}")
+    del model, state, first, b
+    torch.cuda.empty_cache()
+    return {"s": s, "peak": peak, "floor": floor, "losses": losses}
+
+
+def ogb_bytes(spec) -> str:
+    """The largest ``[E, w]`` tensors a layer of each arch holds at
+    ``ogb_products`` in bf16: what rules out three of the four on one
+    80 GB card without edge chunks."""
+    e = spec.shapes["ogb_products"].dims["n_edges"]
+    gb = lambda w: e * w * 2 / 1e9
+    return (f"pna's [E, 150] concat {gb(150):.1f} GB beside [E, 75] gathers "
+            f"of {gb(75):.1f} GB each; egnn's [E, 129] concat {gb(129):.1f} "
+            f"GB beside [E, 64] gathers of {gb(64):.1f} GB; meshgraphnet's "
+            f"[E, 128] edge state {gb(128):.1f} GB carried across layers and "
+            f"its [E, 384] concat {gb(384):.1f} GB (E = {e})")
+
+
+def phase_gnn(dev) -> None:
+    """Phase 13: the four GNNs trained at full width under deterministic
+    algorithms (f32, TF32 off): at ``full_graph_sm`` and ``molecule`` a
+    step's loss and every gradient against an f64 CPU run, then AdamW
+    steps, s per step, nodes and edges per second, peak memory and a
+    profiled step (the scatters' share); ``minibatch_lg`` on blocks of the
+    ported ``MinibatchGraphStream``; gin-tu's checkpoint restart
+    bit-exact; the train CLI; the distributed loss as one NCCL rank
+    (equal to ``gnn_loss`` at ``full_graph_sm``, then gin-tu at
+    ``ogb_products`` in bf16 with remat); the motif-feature example.
+    Must run inside :func:`nccl_world_of_one`."""
+    import importlib.util
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipelines import FullGraphData
+    from repro_torch.models import gnn_dist
+    from repro_torch.models.gnn import (gnn_decay_mask, gnn_loss,
+                                        graph_index, init_gnn_params)
+    from repro_torch.train.loop import to_device
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                             make_train_step)
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+
+    # which scatters raise under deterministic algorithms (logged: the
+    # port's message passing runs none of them)
+    x = torch.randn(4096, 64, device=dev, requires_grad=True)
+    idx = torch.randint(0, 256, (4096,), device=dev)
+    wide = idx[:, None].expand(-1, 64)
+    probes = {
+        "index_add_": lambda: torch.zeros(256, 64, device=dev).index_add_(
+            0, idx, x.detach()),
+        "index_select backward (index_add_)": lambda: x.index_select(
+            0, idx).sum().backward(),
+        "scatter_reduce_ amax": lambda: torch.zeros(256, 64, device=dev)
+        .scatter_reduce_(0, wide, x.detach(), "amax"),
+        "scatter_reduce amax backward": lambda: torch.zeros(
+            256, 64, device=dev).scatter_reduce(
+            0, wide, x, "amax", include_self=False).sum().backward(),
+        "scatter_reduce_ amin": lambda: torch.zeros(256, 64, device=dev)
+        .scatter_reduce_(0, wide, x.detach(), "amin"),
+        "index_put_ accumulate": lambda: torch.zeros(
+            256, 64, device=dev).index_put_((idx,), x.detach(),
+                                            accumulate=True),
+    }
+    for tag, fn in probes.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            log(f"  deterministic algorithms: {tag} runs")
+        except RuntimeError as e:
+            log(f"  deterministic algorithms: {tag} raises: "
+                f"{str(e).splitlines()[0][:120]}")
+    del x, idx, wide
+
+    # -- the cells
+    reg = get_config("meshgraphnet").model_cfg
+    mb = minibatch_stream(get_config("gin-tu"), reg)
+    results = {}
+    for arch in GNN_ARCHS:
+        spec = get_config(arch)
+        for shape in GNN_SHAPES:
+            cfg = spec.model_cfg_for(shape)
+            if shape == "molecule" and cfg.task == "node_reg":
+                log(f"  {arch} {shape}: not run: synthetic_molecules gives "
+                    "neither edge_attr nor targets, so the reference cannot "
+                    "feed this pair either")
+                continue
+            batches = mb if shape == "minibatch_lg" else \
+                [gnn_graph(spec, shape, cfg).as_arrays()]
+            results[arch, shape] = gnn_cell(arch, shape, dev, batches,
+                                            check=shape != "minibatch_lg")
+    del mb
+
+    # -- restart: gin-tu at full_graph_sm through run_training
+    spec = get_config("gin-tu")
+    cfg = spec.model_cfg_for("full_graph_sm")
+    data = FullGraphData(gnn_graph(spec, "full_graph_sm", cfg))
+    first = to_device(data(0), dev)
+    index = graph_index(first["edge_src"], first["edge_dst"],
+                        first["x"].shape[0])
+    del first
+    restart_run(
+        "gin-tu full_graph_sm", lambda m, b: gnn_loss(m, b, index),
+        lambda: init_gnn_params(cfg, seed=SEED, device=dev), data,
+        AdamWConfig(lr=GNN_LR, warmup_steps=1, decay_steps=GNN_RESTART_STEPS),
+        GNN_RESTART_STEPS, GNN_RESTART_EVERY, dev, gnn_decay_mask)
+    del data, index
+
+    # -- the train CLI on the card
+    from repro_torch.launch.train import main as train_main
+    t0 = time.perf_counter()
+    hist = train_main(["--arch", "gin-tu", "--steps", str(GNN_CLI_STEPS)])
+    log(f"  python -m repro_torch.launch.train --arch gin-tu --steps "
+        f"{GNN_CLI_STEPS}: {time.perf_counter() - t0:.1f} s, final loss "
+        f"{hist['loss'][-1]:.4f} (first {hist['loss'][0]:.4f})")
+    if not hist["loss"][-1] < hist["loss"][0]:
+        raise RuntimeError(f"the train CLI's loss did not fall: "
+                           f"{hist['loss']}")
+    del hist
+
+    # -- the distributed loss as one NCCL rank
+    grid = gnn_dist.make_grid(1, 1)
+    for arch in GNN_ARCHS:
+        spec = get_config(arch)
+        cfg = spec.model_cfg_for("full_graph_sm")
+        arrays = gnn_graph(spec, "full_graph_sm", cfg).as_arrays()
+        b = to_device(gnn_dist.shard_batch(arrays, grid), dev)
+        model = init_gnn_params(cfg, seed=SEED, device=dev)
+        want_loss, want = gnn_grads(model, gnn_loss, b)
+        loss, got = gnn_grads(model, gnn_dist.build_dist_loss(
+            cfg, arrays["x"].shape[0], grid), b)
+        got = gnn_dist.reduce_grads(grid)(got)
+        check_close(f"gnn_dist {arch} full_graph_sm, one NCCL rank: the "
+                    "loss against gnn_loss's", loss.reshape(1).cpu(),
+                    want_loss.reshape(1).cpu().double(), GNN_TOL)
+        gnn_agree(f"gnn_dist {arch} full_graph_sm, one NCCL rank", got,
+                  {k: v.double().cpu() for k, v in want.items()},
+                  results[arch, "full_graph_sm"]["floor"],
+                  against="gnn_loss's on the card")
+        del model, b, got, want
+    spec = get_config("gin-tu")
+    dims = spec.shapes["ogb_products"].dims
+    cfg = dataclasses.replace(spec.model_cfg_for("ogb_products"),
+                              dtype=torch.bfloat16, remat=True)
+    t0 = time.perf_counter()
+    arrays = gnn_graph(spec, "ogb_products", cfg).as_arrays()
+    t_gen = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    b = to_device(gnn_dist.shard_batch(arrays, grid), dev)
+    del arrays
+    model = init_gnn_params(cfg, seed=SEED, device=dev)
+    opt = AdamWConfig(lr=GNN_LR, warmup_steps=1, decay_steps=GNN_OGB_STEPS)
+    step_fn = make_train_step(
+        gnn_dist.build_dist_loss(cfg, dims["n_nodes"], grid), opt,
+        gnn_dist.reduce_grads(grid),
+        gnn_decay_mask(dict(model.named_parameters())))
+    state = adamw_init(dict(model.named_parameters()))
+    losses, seconds = [], []
+    for _ in range(GNN_OGB_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, state, metrics = step_fn(model, state, b)
+        losses.append(metrics["loss_total"].item())
+        seconds.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    s = statistics.mean(seconds[1:])
+    log(f"  gnn_dist gin-tu ogb_products, one NCCL rank, bf16 with remat: "
+        f"{dims['n_nodes']} nodes, {b['edge_src'].shape[0]} edges (host "
+        f"generation {t_gen:.1f} s); steps {[round(x, 3) for x in seconds]} "
+        f"s, {s:.3f} s a step, {dims['n_nodes'] / s:.0f} nodes/s, "
+        f"{b['edge_src'].shape[0] / s:.0f} edges/s, peak {peak:.2f} GiB; "
+        f"losses {[round(x, 4) for x in losses]}")
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise RuntimeError(f"gin-tu ogb_products: losses {losses}")
+    log(f"  ogb_products, not run (no edge chunks, as in the reference): "
+        f"{ogb_bytes(spec)}")
+    del model, state, b, step_fn
+    torch.cuda.empty_cache()
+
+    # -- the motif-feature example on the card
+    path = ROOT / "examples" / "motif_features_torch.py"
+    mspec = importlib.util.spec_from_file_location("motif_features_torch",
+                                                   path)
+    mod = importlib.util.module_from_spec(mspec)
+    mspec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    counts, hist = mod.main([])
+    want = mod.motif_counts(mod.powerlaw(300, 4, seed=7), "cpu")
+    log(f"  examples/motif_features_torch.py on the card: "
+        f"{time.perf_counter() - t0:.1f} s; triangle and square totals "
+        f"{int(counts[:, 0].sum())}, {int(counts[:, 1].sum())}; per-vertex "
+        f"counts equal the CPU run's: {bool(np.array_equal(counts, want))}; "
+        f"loss {hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f}")
+    if not np.array_equal(counts, want):
+        raise RuntimeError("the motif counts on the card differ from the "
+                           "CPU's")
+    torch.use_deterministic_algorithms(False)
+    log(f"  phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py needs the repository around it "
               "(src/repro_torch not found)", file=sys.stderr)
@@ -3337,6 +3822,9 @@ def main() -> int:
         with gc_paused():
             launches["sorted_intersect"] += phase_sbenu_dist(dev, stream)
         del stream
+        log("phase 13: GNN training at full width (gin-tu, pna, egnn, "
+            "meshgraphnet), gnn_dist over NCCL, the motif example")
+        phase_gnn(dev)
 
     sources = {"sorted_intersect": ("src/repro_torch/csrc/sorted_intersect.cu",
                                     "src/repro/kernels/sorted_intersect.py:50"),
@@ -3367,6 +3855,7 @@ def main() -> int:
                 **({"at_mla_shape": kern[name]["at_mla_shape"]}
                    if "at_mla_shape" in kern[name] else {})}
                for name, (src, replaces) in sources.items()]
+    log(f"chip_smoke.py: {time.perf_counter() - t_script:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

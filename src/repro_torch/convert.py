@@ -20,6 +20,8 @@ weights:
         {k: np.asarray(v) for k, v in jblocks.items()},
         {k: np.asarray(v) for k, v in jhot.items()},
         dataclasses.asdict(jspec), rank, "cpu")
+    gnn.load_state_dict(gnn_state_dict_from_numpy(
+        jax.tree.map(np.asarray, gnn_params), gnn_cfg))
     jopt = adamw_init(params)       # the JAX package's AdamWState
     opt = adamw_state_from_numpy(np.asarray(jopt.step),
                                  jax.tree.map(np.asarray, jopt.m),
@@ -166,6 +168,28 @@ def bst_state_dict_from_numpy(params: Mapping[str, Any],
             sd[f"blocks.{i}.{name}"] = _tensor(leaf[i])
     for name, leaf in _leaves(params["mlp"], "mlp."):
         sd[name] = _tensor(leaf)
+    return sd
+
+
+def gnn_state_dict_from_numpy(params: Mapping[str, Any],
+                              cfg) -> Dict[str, torch.Tensor]:
+    """The port's ``GNN`` state_dict from the JAX package's GNN params
+    (``np.asarray`` leaves of ``repro.models.gnn.init_gnn_params``):
+    ``enc``, ``enc_e`` (MeshGraphNet) and ``dec`` as they are, and each
+    ``[n_layers, ...]`` leaf of ``layers`` split into
+    ``layers.{i}.<name>`` (GIN's ``eps [L]`` into 0-d tensors)."""
+    sd = {}
+    for tower in ("enc", "enc_e", "dec"):
+        if tower in params:
+            sd.update((name, _tensor(leaf))
+                      for name, leaf in _leaves(params[tower], tower + "."))
+    for name, leaf in _leaves(params["layers"]):
+        leaf = np.asarray(leaf)
+        if leaf.shape[0] != cfg.n_layers:
+            raise ValueError(f"layers.{name}{leaf.shape}: expected "
+                             f"{cfg.n_layers} stacked layers")
+        for i in range(cfg.n_layers):
+            sd[f"layers.{i}.{name}"] = _tensor(leaf[i])
     return sd
 
 

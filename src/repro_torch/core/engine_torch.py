@@ -410,3 +410,30 @@ def default_caps(plan: Plan, batch: int, d: int,
         caps.append(int(min(max(cur, batch), cap_max)))
         cur *= growth
     return caps
+
+
+def enumerate_graph(plan: Plan, graph: Graph, batch: int = 256,
+                    collect_matches: bool = False,
+                    device=None) -> Dict[str, object]:
+    """Run ``plan`` over every start vertex of ``graph`` on one device
+    (the card unless ``device`` says otherwise).
+
+    Thin wrapper over the driver (core/executor.py) and the ``torch``
+    backend, as ``repro.core.engine_jax.enumerate_graph`` is over the JAX
+    one: the driver re-chunks overflowing start batches (the paper's §5.2
+    task splitting) and escalates to capacity doubling only for single
+    unsplittable chunks — exact in all cases. Returns ``count``,
+    ``chunks_retried`` (retries and splits), ``chunks_split`` and, with
+    ``collect_matches``, ``matches`` (int32 ``[count, k]``). Other
+    settings: call ``drive`` with an ``ExecutorConfig``.
+    """
+    from .executor import ExecutorConfig, TorchBackend, drive
+    cfg = ExecutorConfig(batch=batch, collect_matches=collect_matches)
+    st = drive(TorchBackend(device=device), plan, graph, cfg)
+    out: Dict[str, object] = {"count": st.count,
+                              "chunks_retried": st.chunks_retried
+                              + st.chunks_split,
+                              "chunks_split": st.chunks_split}
+    if collect_matches:
+        out["matches"] = st.matches
+    return out

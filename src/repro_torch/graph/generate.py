@@ -108,3 +108,10 @@ def edge_stream(n: int, m_init: int, steps: int, batch: int, seed: int = 0,
                 cur.remove_edge(a, b)
         batches.append(ops)
     return g0, batches
+
+
+def toy_graph_fig1() -> Graph:
+    """A small graph akin to Fig. 1(b) for doc examples/tests (8 vertices)."""
+    edges = [(0, 1), (0, 2), (0, 3), (0, 4), (0, 6), (0, 7), (1, 2), (2, 3),
+             (3, 4), (4, 7), (1, 6), (2, 6), (4, 5), (5, 7)]
+    return Graph.from_edges(8, edges, canonicalize=False)

@@ -198,3 +198,13 @@ class DiGraph:
         adj = [np.array(sorted(s), dtype=np.int64) for s in sets]
         return pad_rows(adj, self.n, d_max=d_max, lane=lane,
                         on_overflow=on_overflow)
+
+
+def edge_index_from_graph(g: Graph) -> np.ndarray:
+    """``int32[2, 2m]`` symmetric COO edge index (GNN substrate)."""
+    src, dst = [], []
+    for v in range(g.n):
+        for w in g.adj[v]:
+            src.append(v)
+            dst.append(int(w))
+    return np.array([src, dst], dtype=np.int32)

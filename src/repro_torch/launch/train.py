@@ -1,4 +1,5 @@
-"""End-to-end training launcher of the port (LM and recsys families).
+"""End-to-end training launcher of the port (LM, recsys and GNN
+families).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         [--smoke] --steps 200 --seq 256 --batch 16 [--lr 1e-3] \\
@@ -21,7 +22,13 @@ MLA models (granite-moe-3b-a800m, deepseek-v2-lite-16b) among them.
 first): deepseek-v2-lite-16b's 15.7 B parameters take 12 bytes each in
 training (bf16 weights and gradients, f32 AdamW moments), 188 GB, so on
 one 80 GB card it trains at ``--layers 4`` (the dense layer and three
-MoE layers; see PERF.md). The GNN family comes with a later slice.
+MoE layers; see PERF.md). A GNN (gin-tu, pna, egnn, meshgraphnet) trains
+full-batch at its first shape cell (``full_graph_sm``; the smoke config's
+``full``), as the reference's CLI: ``synthetic_mesh`` for MeshGraphNet's
+node regression, else ``synthetic_full_graph`` of the cell's nodes and
+half its edges (symmetrized), through ``FullGraphData`` (the same batch
+every step, so its edge index is sorted once) and ``gnn_loss``; ``--seq``
+and ``--batch`` do not apply.
 """
 
 from __future__ import annotations
@@ -63,10 +70,7 @@ def main(argv=None):
     if args.smoke:
         spec = spec.smoke()
     cfg = spec.model_cfg
-    if spec.family == "gnn":
-        raise NotImplementedError("the GNN family comes with the GNN slice "
-                                  "of the port")
-    if spec.family not in ("lm", "recsys"):
+    if spec.family not in ("lm", "recsys", "gnn"):
         raise SystemExit(f"family {spec.family}: use launch/enumerate.py")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
@@ -83,6 +87,29 @@ def main(argv=None):
         stream = LMStream(vocab=cfg.vocab, seq_len=args.seq,
                           global_batch=args.batch)
         init_fn = lambda: init_params(cfg, seed=0, device=dev)
+        batch_fn = stream.batch
+    elif spec.family == "gnn":
+        from ..data.pipelines import FullGraphData
+        from ..graph.batch import synthetic_full_graph, synthetic_mesh
+        from ..models.gnn import (gnn_decay_mask as decay_mask, gnn_loss,
+                                  graph_index, init_gnn_params)
+        from ..train.loop import to_device
+        shape = next(iter(spec.shapes.values()))
+        cfg = spec.model_cfg_for(shape.name)
+        dims = shape.dims
+        if cfg.task == "node_reg":
+            gb = synthetic_mesh(dims["n_nodes"], dims["n_edges"], cfg.d_feat,
+                                cfg.d_edge)
+        else:
+            gb = synthetic_full_graph(dims["n_nodes"], dims["n_edges"] // 2,
+                                      cfg.d_feat, cfg.n_out)
+        batch_fn = FullGraphData(gb)
+        first = to_device(batch_fn(0), dev)
+        index = graph_index(first["edge_src"], first["edge_dst"],
+                            gb.n_nodes)
+        del first
+        loss_fn = lambda model, batch: gnn_loss(model, batch, index)
+        init_fn = lambda: init_gnn_params(cfg, seed=0, device=dev)
     else:
         from ..models.bst import (bst_decay_mask as decay_mask,
                                   bst_loss as loss_fn, init_bst_params)
@@ -92,11 +119,12 @@ def main(argv=None):
                               user_feat_len=cfg.user_feat_len,
                               global_batch=args.batch)
         init_fn = lambda: init_bst_params(cfg, seed=0, device=dev)
+        batch_fn = stream.batch
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 1),
                       decay_steps=args.steps)
     hist = run_training(
-        loss_fn, init_fn, stream.batch, opt,
+        loss_fn, init_fn, batch_fn, opt,
         TrainLoopConfig(steps=args.steps, ckpt_every=args.ckpt_every,
                         log_every=max(args.steps // 20, 1),
                         grad_compression=args.grad_compression),

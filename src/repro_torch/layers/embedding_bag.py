@@ -2,9 +2,11 @@
 
 Counterpart of ``repro/layers/embedding_bag.py``, with its names and
 semantics: ids are clipped to the table (an id past either end reads the
-first or the last row), a ``pad_id`` reads as a zero row, and bags are
-reduced by sum, mean (over the non-pad ids, at least one) or max (pads
-excluded; an empty bag is 0). The reference's ``jnp.take`` +
+first or the last row), a ``pad_id`` reads as a zero row, a row whose
+segment id lies outside ``[0, num_segments)`` is dropped (as
+``jax.ops.segment_*`` drops it), and bags are reduced by sum, mean (over
+the non-pad ids, at least one) or max (pads excluded; an empty bag is
+0). The reference's ``jnp.take`` +
 ``jax.ops.segment_sum`` become a row gather and ``index_add_`` (max:
 ``scatter_reduce_`` with ``amax``); the fixed-width bags of BST's user
 profile reduce over a dense axis, with no scatter at all.
@@ -33,11 +35,17 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                   weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Ragged bag-reduce: rows ``table[ids]`` (times ``weights``) reduced
     per ``segment_ids``. ids, segment_ids: int [L] (flattened ragged bags);
-    returns ``[num_segments, dim]``. ``mode``: sum | mean | max."""
+    returns ``[num_segments, dim]``. ``mode``: sum | mean | max. Rows
+    whose segment id is outside ``[0, num_segments)`` are dropped before
+    the scatter."""
+    seg = segment_ids.long()
+    keep = (seg >= 0) & (seg < num_segments)
+    ids, seg = ids[keep], seg[keep]
+    if weights is not None:
+        weights = weights[keep]
     rows = embedding_lookup(table, ids, pad_id=pad_id)
     if weights is not None:
         rows = rows * weights[..., None]
-    seg = segment_ids.long()
     d = rows.shape[-1]
     if mode == "max":
         if pad_id is not None:

@@ -1,16 +1,15 @@
-"""Dense FFN blocks: SwiGLU (LLaMA-style gated) MLP and the plain ReLU
-tower.
+"""Dense FFN blocks: SwiGLU (LLaMA-style gated) MLP and the plain tower.
 
 Counterpart of ``repro/layers/mlp.py``: :class:`SwiGLU` of
 ``swiglu_params`` / ``swiglu``, :class:`MLP` of ``mlp_params`` /
-``mlp_apply`` (the recsys and GNN towers). Weights keep the reference's
-``[in, out]`` layout (``x @ w``) and names, so the JAX package's arrays
-carry across as they are.
+``mlp_apply`` (the recsys and GNN towers; EGNN's silu towers pass
+``act``). Weights keep the reference's ``[in, out]`` layout (``x @ w``)
+and names, so the JAX package's arrays carry across as they are.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -33,10 +32,11 @@ class SwiGLU(nn.Module):
 
 
 class MLP(nn.Module):
-    """Plain ReLU tower over ``sizes = [in, h1, ..., out]``: ``w{i} [a, b]``
+    """Plain tower over ``sizes = [in, h1, ..., out]``: ``w{i} [a, b]``
     (LeCun-normal) and ``b{i} [b]`` (init 0), the reference's names.
-    ``forward`` applies ReLU after every layer but the last, and after the
-    last too with ``final_act``."""
+    ``forward`` applies ``act`` (ReLU unless given, as the reference's
+    ``mlp_apply``) after every layer but the last, and after the last too
+    with ``final_act``."""
 
     def __init__(self, sizes: Sequence[int], dtype: torch.dtype,
                  gen: torch.Generator):
@@ -48,10 +48,11 @@ class MLP(nn.Module):
             setattr(self, f"b{i}", nn.Parameter(torch.zeros(
                 b, dtype=dtype, device=gen.device)))
 
-    def forward(self, x: torch.Tensor, final_act: bool = False
+    def forward(self, x: torch.Tensor, final_act: bool = False,
+                act: Callable[[torch.Tensor], torch.Tensor] = F.relu
                 ) -> torch.Tensor:
         for i in range(self.n_layers):
             x = x @ getattr(self, f"w{i}") + getattr(self, f"b{i}")
             if i < self.n_layers - 1 or final_act:
-                x = F.relu(x)
+                x = act(x)
         return x

@@ -123,6 +123,24 @@ def test_embedding_bag_equals_jax(mode, pad_id, weighted):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("last", [3, -1])
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+def test_embedding_bag_drops_out_of_range_segments_as_jax(mode, last):
+    """A row whose segment id lies outside [0, num_segments) is dropped,
+    as jax.ops.segment_* drops it (the padding convention of the GNN
+    scatters), in every mode."""
+    table = np.arange(40, dtype=np.float32).reshape(10, 4)
+    ids = np.array([1, 2, 3, 0, 5, 6], np.int32)
+    seg = np.array([0, 0, 1, 1, 2, last], np.int32)
+    want = jeb.embedding_bag(jnp.asarray(table), jnp.asarray(ids),
+                             jnp.asarray(seg), 3, mode=mode, pad_id=0)
+    got = teb.embedding_bag(torch.from_numpy(table), torch.from_numpy(ids),
+                            torch.from_numpy(seg), 3, mode=mode, pad_id=0)
+    assert got.shape == (3, 4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
 @pytest.mark.parametrize("pad_id", [None, 0])
 @pytest.mark.parametrize("mode", ["sum", "mean"])
 def test_embedding_bag_fixed_and_lookup_equal_jax(mode, pad_id):

@@ -278,14 +278,17 @@ def test_configs_equal_the_reference(arch):
 
 
 def test_unported_archs_and_configs_raise():
-    """The GNNs are not ported yet; BST is (a recsys config), and the MoE
+    """Every assigned architecture is ported: BST (a recsys config) and the
+    four GNNs too; ``benu``, which has no model config, raises. The MoE
     and MLA models train with no guard left: the training CLI runs them,
     at a cut depth with ``--layers``."""
-    assert sorted(list_archs()) == sorted(ARCHS + ["bst"])
+    gnns = ["gin-tu", "pna", "egnn", "meshgraphnet"]
+    assert sorted(list_archs()) == sorted(ARCHS + ["bst"] + gnns)
     assert get_config("bst").family == "recsys"
-    for arch in ("gin-tu", "pna", "egnn", "meshgraphnet"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            get_config(arch)
+    for arch in gnns:
+        assert get_config(arch).family == "gnn"
+    with pytest.raises(NotImplementedError, match="no model config"):
+        get_config("benu")
     assert not hasattr(ttf, "check_trainable")
     from repro_torch.launch.train import main
     for arch in ("granite-moe-3b-a800m", "deepseek-v2-lite-16b"):

@@ -120,7 +120,9 @@ def test_sources_import_neither_jax_nor_repro():
                 "core/engine_dist.py", "core/engine_sbenu_dist.py",
                 "distributed/rowstore.py", "layers/moe.py",
                 "configs/granite_moe_3b_a800m.py",
-                "configs/deepseek_v2_lite_16b.py"):
+                "configs/deepseek_v2_lite_16b.py", "models/gnn.py",
+                "models/gnn_dist.py", "configs/gin_tu.py", "configs/pna.py",
+                "configs/egnn.py", "configs/meshgraphnet.py"):
         assert any(p.endswith(os.sep + mod.replace("/", os.sep))
                    for p in paths), mod
     for p in paths:
@@ -152,7 +154,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
                 "layers.rope", "layers.moe", "models.transformer",
                 "configs.qwen2_0_5b", "configs.qwen2_5_3b",
                 "configs.phi4_mini_3_8b", "configs.granite_moe_3b_a800m",
-                "configs.deepseek_v2_lite_16b",
+                "configs.deepseek_v2_lite_16b", "models.gnn",
+                "models.gnn_dist", "configs.gin_tu", "configs.pna",
+                "configs.egnn", "configs.meshgraphnet",
                 "kernels.flash_attention", "kernels.rmsnorm"):
         assert f"repro_torch.{mod}" in mods
 

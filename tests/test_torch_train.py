@@ -446,8 +446,8 @@ def test_entry_points_without_a_device_raise_when_no_card(monkeypatch):
     from repro_torch.launch.train import main
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--smoke", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="slice"):
-        main(["--arch", "gin-tu", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--arch", "gin-tu", "--smoke", "--steps", "1"])
     hist = main(["--arch", "bst", "--smoke", "--device", "cpu", "--steps",
                  "2", "--batch", "8"])
     assert len(hist["loss"]) == 2 and all(map(np.isfinite, hist["loss"]))
