@@ -150,7 +150,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    motif_features_torch.py`` on the card, its per-vertex motif counts
    equal to a CPU run's. The GNNs run no kernel of the port (their
    segment sums are plain PyTorch, as they are plain jnp in the JAX
-   package).
+   package);
+14. the dry-run tooling (``phase_dryrun``): each kernel op at its phase-2
+   shape, its fake implementation's shape, dtype and strides equal to the
+   launched kernel's, a launch through the dispatcher bit-equal to the
+   ctypes launch, host µs a call of the ctypes launch, the dispatcher op
+   and the wrapper; one qwen2-0.5b training step at phase 9's shape on
+   a (1, 1) mesh (DTensor parameters, the model under a ``ShardCtx``:
+   the program the dry-run traces) against the same step without a mesh,
+   its loss and every gradient within ``LM_TOL_FLOORS`` x the no-mesh
+   bf16 step's distance from its f32 one; ``launch/op_analysis.OpCounter``
+   on that step (the flops split into kernel ops and matmuls, their
+   ratio to 6·N·tokens plus the causal attention, the TFLOP/s of a step
+   timed outside the counter), and one rmsnorm call's bytes and one flash
+   call's flops as counted, equal to ``kernels/cost.py``'s; and
+   ``launch/dryrun.py`` on ``DRYRUN_RUNS`` (three subprocesses side by
+   side, so that their fake worlds never meet this process's NCCL world:
+   the cells over the 16 x 16 mesh and train_4k over 2 x 16 x 16), fake
+   tensors on the card's device, every cell ``OK`` with its per-device
+   GiB, the three roofline terms and the dominant one printed. They run
+   beside phase 4's graph generation (host set-up, not a measurement of
+   the port), which phase 4 waits on before its first timed run, so no
+   timed run of the script shares the host with them.
 
 Phase 1 also counts the HGMMA (``wgmma``) instructions in the SASS of
 both flash libraries, forward and backward (``cuobjdump``), and fails if
@@ -212,6 +233,7 @@ result when there is no CUDA device or no ``src/repro_torch`` beside it.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -226,14 +248,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-# HBM bandwidth by card name (NVIDIA data sheets); the bound of a
-# memory-bound kernel is its bytes over this rate
-BANDWIDTH = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
-             ("H100", 3.35e12))
-# dense bf16 tensor-core rate by card name (NVIDIA data sheets); the bound
-# of an operation-bound kernel is its flops over this rate
-PEAK_BF16 = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H200", 989e12),
-             ("H100", 989e12))
+# the bound of a kernel is the larger of its bytes over the card's HBM
+# rate and its flops over its dense bf16 rate: the rates by card name
+# (NVIDIA data sheets) and each kernel's flops and bytes are
+# repro_torch/kernels/cost.py's (BANDWIDTH, PEAK_BF16), which the dry-run
+# (launch/dryrun.py) reads too
 FULL_N, FULL_BATCH, FULL_CAPS = 1_000_000, 4096, (65536, 16384)
 # LM path: prefill 4 x 4096 tokens; the serve loop as serve.py's defaults
 LM_ARCH, LM_BATCH, LM_SEQ = "qwen2-0.5b", 4, 4096
@@ -325,6 +344,18 @@ GNN_STEPS, GNN_MB_STEPS, GNN_MB_DEGREE = 6, 4, 8
 GNN_RESTART_STEPS, GNN_RESTART_EVERY = 6, 3
 GNN_CLI_STEPS, GNN_OGB_STEPS = 20, 3
 GNN_LR, GNN_TOL = 1e-4, 1e-4
+# phase 14: the dry-run's cells, traced on fake tensors by subprocesses
+# side by side beside phase 4's graph generation (tag, cells, multi-pod):
+# train_4k alone takes most of a subprocess's time, so it runs in one of
+# its own; their time limit
+DRYRUN_RUNS = (
+    ("pod", ("qwen2-0.5b:train_4k",), False),
+    ("pod", ("qwen2-0.5b:decode_32k", "qwen2-0.5b:long_500k",
+             "granite-moe-3b-a800m:prefill_32k", "bst:retrieval_cand",
+             "gin-tu:ogb_products", "benu:enum_128m",
+             "benu:sbenu_delta_16m"), False),
+    ("multipod", ("qwen2-0.5b:train_4k",), True))
+DRYRUN_TIMEOUT_S, HOST_CALLS = 300, 300
 
 
 @contextlib.contextmanager
@@ -362,13 +393,6 @@ def hgmma_by_body(sass: str) -> dict:
     return out
 
 
-def card_rate(table, name: str) -> float:
-    for key, rate in table:
-        if key in name:
-            return rate
-    raise RuntimeError(f"no rate known for card {name!r}")
-
-
 def phase_mla_flash_bwd(dev, bandwidth: float, peak: float) -> dict:
     """The flash backward at MLA's widths (q and k 192, v 128) against its
     plain backward formulas (``ref.flash_attention_backward`` in f32 on
@@ -382,6 +406,7 @@ def phase_mla_flash_bwd(dev, bandwidth: float, peak: float) -> dict:
     two calls at the training shape must give the same bits, and the
     kernel is timed there beside its bound, the plain version and SDPA's
     backward (which backends take ``Ev != E`` is logged)."""
+    from repro_torch.kernels import cost
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -462,11 +487,9 @@ def phase_mla_flash_bwd(dev, bandwidth: float, peak: float) -> dict:
         "profiler): " + ", ".join(
             f"{kernel_name(key)} {ms:.4f}"
             for key, ms in sorted(split.items(), key=lambda x: -x[1])))
-    visible = t * (t + 1) // 2
     # S, dK, dQ over dqk; dP, dV over dv
-    flops = 2 * b * h * visible * (3 * dqk + 2 * dv)
-    nbytes = 2 * (2 * b * h * t * dqk * 2 + b * h * t * dv * 4) \
-        + b * h * t * 4
+    flops = cost.flash_bwd_flops(b, h, t, t, dqk, dv, True)
+    nbytes = cost.flash_bwd_bytes(b, h, h, t, t, dqk, dv, 2)
     bound_ms = max(flops / peak, nbytes / bandwidth) * 1e3
     qc, kc, vc, oc, doc = (x.contiguous() for x in (q, k, v, o, do))
     qs, ks, vs = (x.detach().requires_grad_() for x in (qc, kc, vc))
@@ -594,6 +617,7 @@ def plain_rows(fn, rows: int, width_product: int):
 
 
 def phase_kernels(dev, bandwidth: float) -> dict:
+    from repro_torch.kernels import cost
     import torch
     from repro_torch.kernels import gather_intersect as gi
     from repro_torch.kernels import ref
@@ -638,7 +662,7 @@ def phase_kernels(dev, bandwidth: float) -> dict:
         worst = max(worst, err)
         if (Da, Db) == (3968, 3968):
             ms = cuda_time_ms(lambda: si.sorted_intersect_cuda(a, b, n), 10)
-            nbytes = B * (Da + Db) * 4 + B * Da * 4
+            nbytes = cost.sorted_intersect_bytes(B, Da, Db)
             bound_ms = nbytes / bandwidth * 1e3
             log(f"  sorted_intersect ({holes}): kernel {ms:.4f} ms, bound "
                 f"{bound_ms:.4f} ms, {100 * bound_ms / ms:.1f}% of bound")
@@ -698,7 +722,7 @@ def phase_kernels(dev, bandwidth: float) -> dict:
             # (negative ids read row 0; row n is never read)
             rows = ids.clamp(0, n).unique()
             n_valid = int((rows < n).sum())
-            nbytes = B * Dc * 4 * 2 + B * 4 + n_valid * D * 4
+            nbytes = cost.gather_intersect_bytes(B, Dc, D, n_valid)
             out["gather_intersect"] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=nbytes / bandwidth * 1e3,
                 shape=f"B={B} Dc={Dc} D={D}")
@@ -834,15 +858,23 @@ def phase_mid(dev) -> None:
     return g, tri, torch_runs
 
 
-def phase_full(dev) -> dict:
+def phase_full(dev, beside_setup=None) -> dict:
+    """The triangle over all starts of ``powerlaw(FULL_N, 8)``, ``torch``
+    and ``torch-gpu`` against an independent count. ``beside_setup``
+    (started processes' waiter) is called once the graph is generated:
+    work that runs beside the generation, host set-up that is not timed
+    as the port's, ends before any timed run starts."""
     import torch
     from repro_torch.core.pattern import get_pattern
     from repro_torch.core.plangen import generate_best_plan
     from repro_torch.graph.generate import powerlaw
     t0 = time.perf_counter()
     g = powerlaw(FULL_N, 8, seed=SEED)
+    note = "; phase 14's dry-run cells beside it" if beside_setup else ""
     log(f"  powerlaw({FULL_N}, 8): {g.m} edges, max degree {g.deg.max()}, "
-        f"generated in {time.perf_counter() - t0:.1f} s (host)")
+        f"generated in {time.perf_counter() - t0:.1f} s (host{note})")
+    if beside_setup is not None:
+        beside_setup()
     t0 = time.perf_counter()
     want = independent_triangles(g, dev)
     torch.cuda.synchronize()
@@ -905,6 +937,7 @@ def rmsnorm_timing(dev, bandwidth: float) -> dict:
     Launches rotate over four input sets (117 MB at the prefill rows, more
     than the 50 MB L2). Returns, per row count, the medians by impl and
     metric, the plain version's eager ms and the bytes bound."""
+    from repro_torch.kernels import cost
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -939,7 +972,7 @@ def rmsnorm_timing(dev, bandwidth: float) -> dict:
                     cuda_time_ms(rotating(fn, sets), LAUNCHES))
                 rounds[k]["host_us"].append(host_us(op, calls))
         res[rows] = {
-            "bound_ms": (2 * rows * d + d) * 2 / bandwidth * 1e3,
+            "bound_ms": cost.rmsnorm_bytes(rows, d, 2) / bandwidth * 1e3,
             "plain_eager_ms": cuda_time_ms(rotating(
                 lambda x, g: ref.rmsnorm(x, g, 1e-6), sets), 8)}
         for k, metrics in rounds.items():
@@ -966,6 +999,7 @@ def rmsnorm_timing(dev, bandwidth: float) -> dict:
 
 
 def phase_lm_kernels(dev, bandwidth: float, peak: float) -> dict:
+    from repro_torch.kernels import cost
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1075,9 +1109,8 @@ def phase_lm_kernels(dev, bandwidth: float, peak: float) -> dict:
                                    f"version at {(b, hq, hkv, tq, tk, d)}")
             del q, k, v, got, want
     def flash_bound(b, hq, hkv, t, d):
-        visible = t * (t + 1) // 2                   # causal pairs per head
-        flops = 4 * b * hq * d * visible
-        nbytes = (2 * b * hq * t * d + 2 * b * hkv * t * d) * 2
+        flops = cost.flash_flops(b, hq, t, t, d, d, True)
+        nbytes = cost.flash_bytes(b, hq, hkv, t, t, d, d, 2)
         return (max(nbytes / bandwidth, flops / peak) * 1e3,
                 "operations" if flops / peak > nbytes / bandwidth
                 else "bytes")
@@ -1175,6 +1208,7 @@ def phase_mla_flash(dev, bandwidth: float, peak: float) -> dict:
     2e-5 in f32, as phase 2's other flash cases); then timed on the
     layer's views beside its bound, the plain version and
     ``F.scaled_dot_product_attention`` at the same shape."""
+    from repro_torch.kernels import cost
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1234,9 +1268,8 @@ def phase_mla_flash(dev, bandwidth: float, peak: float) -> dict:
                                    f"plain version at {(dqk_o, dv_o)}")
             del q, k, v, got, want
     b, h, t = LM_BATCH, MLA_HEADS, LM_SEQ
-    visible = t * (t + 1) // 2
-    flops = 2 * (dqk + dv) * b * h * visible
-    nbytes = b * h * t * (2 * dqk + 2 * dv) * 2
+    flops = cost.flash_flops(b, h, t, t, dqk, dv, True)
+    nbytes = cost.flash_bytes(b, h, h, t, t, dqk, dv, 2)
     bound_ms = max(flops / peak, nbytes / bandwidth) * 1e3
     bound_by = "operations" if flops / peak > nbytes / bandwidth \
         else "bytes"
@@ -1282,6 +1315,7 @@ def phase_lm_bwd_kernels(dev, bandwidth: float, peak: float) -> dict:
     ``<= 1e-4 * max|want|``, bf16 within one bf16 ulp of the f32 value plus
     ``1e-6 * max|want|`` (dx cancels in ``g*gamma - x*coef``, where f32
     rounding is absolute, not relative)."""
+    from repro_torch.kernels import cost
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1372,10 +1406,8 @@ def phase_lm_bwd_kernels(dev, bandwidth: float, peak: float) -> dict:
     log("  flash_attention_bwd by kernel (device ms a call, profiler): " +
         ", ".join(f"{kernel_name(key)} {ms:.4f}"
                   for key, ms in sorted(split.items(), key=lambda x: -x[1])))
-    visible = t * (t + 1) // 2
-    flops = 5 * 2 * b * hq * d * visible            # S, dP, dV, dK, dQ
-    nbytes = (2 * 3 * b * hq * t * d + 2 * 2 * b * hkv * t * d) * 2 \
-        + b * hq * t * 4
+    flops = cost.flash_bwd_flops(b, hq, t, t, d, d, True)  # S dP dV dK dQ
+    nbytes = cost.flash_bwd_bytes(b, hq, hkv, t, t, d, d, 2)
     bound_ms = max(flops / peak, nbytes / bandwidth) * 1e3
     qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
@@ -1472,7 +1504,7 @@ def phase_lm_bwd_kernels(dev, bandwidth: float, peak: float) -> dict:
                                        ref.rmsnorm_backward(x, gam, g, 1e-6),
                                        sets), 8),
         library_ms=sum(lib_split.values()),
-        bound_ms=(3 * rows * d + 2 * d) * 2 / bandwidth * 1e3,
+        bound_ms=cost.rmsnorm_bwd_bytes(rows, d, 2) / bandwidth * 1e3,
         bound_by="bytes", max_abs_err=worst,
         shape=f"[{rows}, {d}] bf16, device-only")
     del sets, lib_sets
@@ -1721,7 +1753,8 @@ LEAF_GROUPS = (("attention", ".attn."), ("mlp", ".ffn."), ("norms", "norm"),
 
 
 def check_agreement(what: str, diff: dict, floor: dict,
-                    each_tensor: bool) -> None:
+                    each_tensor: bool, label: str = "kernels vs plain"
+                    ) -> None:
     """Kernels vs plain by parameter: ``diff`` and ``floor`` hold each
     tensor's L2 distance kernels-vs-plain and plain-bf16-vs-f32. With
     ``each_tensor`` every tensor must be within LM_TOL_FLOORS x its own
@@ -1744,12 +1777,12 @@ def check_agreement(what: str, diff: dict, floor: dict,
         ratio = {n: d / f if f else (0.0 if d == 0 else math.inf)
                  for n, (d, f) in items.items()}
         n = max(ratio, key=ratio.get)
-        log(f"  kernels vs plain, {what}, {group}, worst of {len(items)}: "
+        log(f"  {label}, {what}, {group}, worst of {len(items)}: "
             f"{n} {items[n][0]:.4g} against {items[n][1]:.4g} (ratio "
             f"{ratio[n]:.4g}, tolerance {LM_TOL_FLOORS})")
         bad += [n for n, r in ratio.items() if not r <= LM_TOL_FLOORS]
     if bad:
-        raise RuntimeError(f"training step, kernels vs plain: {what} of "
+        raise RuntimeError(f"training step, {label}: {what} of "
                            f"{bad} over {LM_TOL_FLOORS} x their yardstick")
 
 
@@ -3711,6 +3744,358 @@ def phase_gnn(dev) -> None:
     log(f"  phase 13: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the dry-run tooling
+# ---------------------------------------------------------------------------
+
+
+def start_dryrun(out: Path) -> list:
+    """Start the dry-run CLI on each of ``DRYRUN_RUNS``: subprocesses (so
+    that their fake worlds never meet this process's NCCL world), fake
+    tensors on the card's device. Returns ``[(tag, Popen)]``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for tag, cells, multi_pod in DRYRUN_RUNS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
+               "cuda", "--out", str(out),
+               *(["--multi-pod"] if multi_pod else []), "--cells", *cells]
+        procs.append((tag, subprocess.Popen(
+            cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    # a failure here leaves none of them running
+    atexit.register(lambda: [p.kill() for _, p in procs
+                             if p.poll() is None])
+    return procs
+
+
+def wait_dryrun(procs: list, t0: float) -> list:
+    """Wait for :func:`start_dryrun`'s processes (started at ``t0``),
+    each within what is left of ``DRYRUN_TIMEOUT_S``. Returns ``[(tag,
+    returncode or None on timeout, output)]``."""
+    done = []
+    for tag, proc in procs:
+        left = max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0))
+        try:
+            text, _ = proc.communicate(timeout=left)
+            done.append((tag, proc.returncode, text))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            done.append((tag, None, proc.communicate()[0]))
+    log(f"  phase 14's dry-run cells: {time.perf_counter() - t0:.1f} s")
+    return done
+
+
+def report_dryrun(done: list, out: Path) -> dict:
+    """Print each cell's line of :func:`wait_dryrun`'s runs (per-device
+    GiB, the three roofline terms, the dominant one). Raises when a run
+    failed or a cell is not OK. Returns the reports."""
+    failed = []
+    for tag, rc, text in done:
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith(("OK", "FAIL"))]
+        for ln in lines:
+            log(f"  [{tag}] {ln}")
+        bad = [ln for ln in lines if ln.startswith("FAIL")]
+        if rc != 0 or bad or not lines:
+            log("  " + "\n  ".join(text.splitlines()[-60:]))
+            failed.append(f"a {tag} run (rc {rc}, {len(bad)} cells"
+                          f"{'' if rc is not None else '; timed out'})")
+    if failed:
+        raise RuntimeError(f"the dry-run failed: {failed}")
+    reports = {}
+    for path in sorted(out.glob("*.json")):
+        rep = json.loads(path.read_text())
+        r, m = rep["roofline"], rep["memory_analysis"]
+        reports[path.stem] = rep
+        log(f"  {path.stem}: {m['peak_bytes_per_device'] / 2**30:.3f} GiB/"
+            f"device (args {m['argument_bytes'] / 2**30:.3f}), compute "
+            f"{r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f}"
+            f" ms, collective {r['collective_s'] * 1e3:.3f} ms -> "
+            f"{r['dominant']}; flops "
+            f"{rep['cost_analysis']['flops_per_chip']:.4g}, kernel ops' bytes "
+            f"{rep['cost_analysis']['kernel_bytes_by_op']}")
+    return reports
+
+
+def replicated_lm(model, mesh):
+    """``model``'s parameters as DTensors on a mesh of one rank (the
+    same values; every placement ``Replicate``)."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        d = DTensor.from_local(p.detach(), mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+        setattr(mod, leaf, torch.nn.Parameter(d))
+
+
+def step_grads(model, batch, ctx) -> tuple:
+    """``loss_fn``'s loss and every parameter's gradient (whole tensors)
+    of one forward and backward, the gradients then cleared."""
+    from repro_torch.models.transformer import loss_fn
+
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+    loss, _ = loss_fn(model, batch, ctx=ctx)
+    loss.backward()
+    grads = {n: whole(p.grad) for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(whole(loss)), grads
+
+
+def phase_counted_step(dev, peak: float) -> dict:
+    """The program the dry-run traces, on the card: one qwen2-0.5b
+    training step at phase 9's shape (bf16, remat) on a (1, 1) mesh
+    (DTensor parameters and batch, the model under a ``ShardCtx``: the
+    embedding, flash, RMSNorm and the cross entropy on local shards)
+    against the same step without a mesh, the loss and every gradient
+    within ``LM_TOL_FLOORS`` x the no-mesh bf16 step's distance from its
+    f32 one; then that step counted by ``launch/op_analysis.OpCounter``
+    and timed outside the counter."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cost
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.op_analysis import OpCounter
+    from repro_torch.launch.steps import _accumulating_step
+    from repro_torch.layers.common import NO_SHARD, ShardCtx
+    from repro_torch.models.transformer import (Transformer, decay_mask,
+                                                init_params, loss_fn)
+    from repro_torch.train.optimizer import AdamWConfig, AdamWState
+    cfg = get_config(LM_ARCH).model_cfg
+    b, t = TRAIN_BATCH, TRAIN_SEQ
+    res = {}
+    with nccl_world_of_one(dev), implicit_replication():
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        ctx = ShardCtx(mesh=mesh, dp=("data",), tp="model")
+        model = init_params(cfg, seed=SEED, device=dev)
+        decay = decay_mask(dict(model.named_parameters()))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        toks = torch.randint(0, cfg.vocab, (b, t + 1), generator=gen,
+                             device=dev, dtype=torch.int32)
+        plain = {"tokens": toks[:, :-1].contiguous(),
+                 "labels": toks[:, 1:].contiguous()}
+        # the yardstick: the step without a mesh in bf16 and in f32
+        loss_p, g_p = step_grads(model, plain, NO_SHARD)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        model32 = Transformer(dataclasses.replace(cfg, dtype=torch.float32),
+                              torch.Generator(device=dev))
+        model32.load_state_dict(model.state_dict())       # bf16 -> f32
+        loss_32, g_32 = step_grads(model32, plain, NO_SHARD)
+        del model32
+        torch.cuda.empty_cache()
+        replicated_lm(model, mesh)
+        params = dict(model.named_parameters())
+        opt = AdamWState(
+            step=torch.zeros((), dtype=torch.int32, device=dev),
+            m={k: torch.zeros_like(p, dtype=torch.float32)
+               for k, p in params.items()},
+            v={k: torch.zeros_like(p, dtype=torch.float32)
+               for k, p in params.items()})
+        batch = {k: DTensor.from_local(v, mesh, [Replicate()] * 2,
+                                       run_check=False)
+                 for k, v in plain.items()}
+        loss_m, g_m = step_grads(model, batch, ctx)
+        diff, floor = abs(loss_m - loss_p), abs(loss_p - loss_32)
+        log(f"  the step on a (1, 1) mesh vs without: loss {loss_m:.6f} vs "
+            f"{loss_p:.6f} (f32 {loss_32:.6f}), {diff:.4g} (tolerance "
+            f"{LM_TOL_FLOORS} x {floor:.4g})")
+        if not diff <= LM_TOL_FLOORS * floor:
+            raise RuntimeError(f"the step on a mesh: loss {diff} over "
+                               f"{LM_TOL_FLOORS} x {floor}")
+        check_agreement("gradient", leaf_dists(g_m, g_p),
+                        leaf_dists(g_p, g_32), each_tensor=True,
+                        label="mesh vs no mesh")
+        del g_m, g_p, g_32
+        step = _accumulating_step(
+            model, lambda m, bt: loss_fn(m, bt, ctx=ctx), AdamWConfig(), 1,
+            decay)
+        opt, _ = step(opt, batch)                 # warm
+        torch.cuda.synchronize()
+        counter = OpCounter()
+        with counter:
+            opt, met = step(opt, batch)
+        torch.cuda.synchronize()
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            opt, met = step(opt, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        loss = met["loss"]
+        loss = float(getattr(loss, "full_tensor", lambda: loss)())
+        del model, params, opt, batch, step
+    tot = counter.totals
+    kflops = sum(v for k, v in tot.flops_by_op.items()
+                 if k.startswith("repro_torch"))
+    mflops = tot.flops - kflops
+    tokens = b * t
+    attn = cfg.n_layers * 3 * cost.flash_flops(b, cfg.n_heads, t, t,
+                                               cfg.d_head, cfg.d_head, True)
+    model_flops = 6 * cfg.n_active_params * tokens + attn
+    step_s = statistics.median(secs)
+    rate = tot.flops / step_s
+    by_kernel = {k: f"{v:.4g}" for k, v in tot.flops_by_op.items()
+                 if k.startswith("repro_torch")}
+    log(f"  counted qwen2-0.5b step [{b} x {t}] bf16 remat on a (1, 1) "
+        f"mesh: {tot.flops:.6g} flops ({kflops:.6g} in kernel ops "
+        f"{by_kernel}, {mflops:.6g} in matmuls); 6*N*tokens + 3 x causal "
+        f"attention "
+        f"= {model_flops:.6g}, ratio {tot.flops / model_flops:.4f}; "
+        f"HBM bytes (unfused eager) {tot.hbm_bytes:.6g}; peak live "
+        f"{tot.peak_bytes / 2**30:.2f} GiB; loss {loss:.4f}")
+    log(f"  step time outside the counter {[round(s, 4) for s in secs]} s, "
+        f"median {step_s:.4f} s: {rate / 1e12:.1f} TFLOP/s, "
+        f"{100 * rate / peak:.1f}% of {peak / 1e12:.0f} TFLOP/s")
+    res.update(flops=tot.flops, kernel_flops=kflops, step_s=step_s,
+               ratio=tot.flops / model_flops, tflops=rate / 1e12)
+    return res
+
+
+def phase_kernel_ops(dev) -> dict:
+    """Each kernel op at its phase-2 shape: its fake implementation's
+    shape, dtype and strides equal the launched kernel's output; a launch
+    through the dispatcher is bit-equal to the ctypes launch; the counter
+    reads one rmsnorm call's bytes and one flash call's flops as
+    ``kernels/cost.py`` gives them; host µs per call, ctypes against the
+    dispatcher."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import cost, library, ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gather_intersect as gi
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import sorted_intersect as si
+    from repro_torch.launch.op_analysis import OpCounter
+    from repro_torch.launch.rmsnorm_ab import host_us
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n, B = FULL_N, 4096
+
+    def rnd(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    b, hq, hkv, t, d = LM_BATCH, 14, 2, LM_SEQ, 64
+    q, k, v = rnd((b, hq, t, d)), rnd((b, hkv, t, d)), rnd((b, hkv, t, d))
+    scale = d ** -0.5
+    out, lse = fa.launch_forward(q, k, v, True, scale, True)
+    dout = rnd(out.shape)
+    x, g = rnd((LM_BATCH * LM_SEQ, 896)), rnd((896,))
+    gy = rnd(x.shape)
+    a = padded_sets(gen, B, 640, n, 0.1, tail=False)
+    bb = padded_sets(gen, B, 640, n, 0.0, tail=True)
+    adj = padded_sets(gen, 20001, 128, 20000, 0.0, tail=True)
+    adj[20000] = 20000
+    ids = torch.randint(0, 20000, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    cand = padded_sets(gen, B, 128, 20000, 0.1, tail=False)
+    cases = {
+        "flash_attention": ((q, k, v, True, scale),
+                            lambda: fa.launch_forward(q, k, v, True, scale,
+                                                      False)[0],
+                            lambda: fa.flash_attention_cuda(q, k, v)),
+        "flash_attention_lse": ((q, k, v, True, scale),
+                                lambda: fa.launch_forward(q, k, v, True,
+                                                          scale, True),
+                                lambda: fa.flash_attention_lse_cuda(q, k,
+                                                                    v)),
+        "flash_attention_bwd": ((q, k, v, out, lse, dout, True, scale),
+                                lambda: fa.launch_backward(
+                                    q, k, v, out, lse, dout, True, scale),
+                                lambda: fa.flash_attention_bwd_cuda(
+                                    q, k, v, out, lse, dout, True, scale)),
+        "rmsnorm": ((x, g, 1e-6), lambda: rn.launch_forward(x, g, 1e-6),
+                    lambda: rn.rmsnorm_cuda(x, g, 1e-6)),
+        "rmsnorm_bwd": ((x, g, gy, 1e-6),
+                        lambda: rn.launch_backward(x, g, gy, 1e-6),
+                        lambda: rn.rmsnorm_bwd_cuda(x, g, gy, 1e-6)),
+        "sorted_intersect": ((a, bb, n), lambda: si.launch(a, bb, n),
+                             lambda: si.sorted_intersect_cuda(a, bb, n)),
+        "gather_intersect": ((ids, cand, adj, 20000),
+                             lambda: gi.launch(ids, cand, adj, 20000),
+                             lambda: gi.gather_intersect_cuda(ids, cand, adj,
+                                                              20000)),
+    }
+    host = {}
+    for name, (args, old, new) in cases.items():
+        with FakeTensorMode(allow_non_fake_inputs=True) as fm:
+            fake_args = [fm.from_tensor(a_) if isinstance(a_, torch.Tensor)
+                         else a_ for a_ in args]
+            fake = library.op(name)(*fake_args)
+
+        def via_op(name=name, args=args):
+            return library.op(name)(*args)
+        got_old, got_op = old(), via_op()
+        torch.cuda.synchronize()
+        fake, got_old, got_op = (r if isinstance(r, tuple) else (r,)
+                                 for r in (fake, got_old, got_op))
+        for f_, o_, n_ in zip(fake, got_old, got_op):
+            if (f_.shape, f_.dtype, f_.stride()) != \
+                    (n_.shape, n_.dtype, n_.stride()):
+                raise RuntimeError(
+                    f"{name}: the fake implementation gives "
+                    f"{(tuple(f_.shape), f_.dtype, f_.stride())}, the kernel "
+                    f"{(tuple(n_.shape), n_.dtype, n_.stride())}")
+            if not torch.equal(o_, n_):
+                raise RuntimeError(f"{name}: the dispatcher launch differs "
+                                   "from the ctypes launch")
+        calls = HOST_CALLS if name.startswith(("rmsnorm", "flash_attention"
+                                               )) else HOST_CALLS // 3
+        # the ctypes launch (the parent's binding), the dispatcher op, the
+        # wrapper (direct when nothing intercepts), in turns
+        us = {k: [] for k in ("ctypes_us", "dispatcher_us", "wrapper_us")}
+        for fns in ((old, via_op, new), (new, via_op, old)):
+            for key, fn in zip(("ctypes_us", "dispatcher_us", "wrapper_us")
+                               if fns[0] is old else
+                               ("wrapper_us", "dispatcher_us", "ctypes_us"),
+                               fns):
+                us[key].append(host_us(fn, calls))
+        host[name] = {k: statistics.mean(v) for k, v in us.items()}
+        log(f"  {name}: fake implementation == kernel output (shape, dtype, "
+            f"strides); dispatcher == ctypes bit for bit; host us a call "
+            + ", ".join(f"{k[:-3]} {'/'.join(f'{x:.2f}' for x in v)}"
+                        for k, v in us.items()))
+    # the public entry points, as the serving path calls them
+    for name, fn in (("ops.rmsnorm", lambda: ops.rmsnorm(x, g)),
+                     ("ops.flash_attention",
+                      lambda: ops.flash_attention(q, k, v))):
+        with torch.inference_mode():
+            host[name] = {"dispatcher_us": (host_us(fn, HOST_CALLS)
+                                            + host_us(fn, HOST_CALLS)) / 2}
+        log(f"  {name} (inference_mode): host "
+            f"{host[name]['dispatcher_us']:.2f} us a call")
+    with torch.inference_mode():
+        c1 = OpCounter()
+        with c1:
+            ops.rmsnorm(x, g)
+        c2 = OpCounter()
+        with c2:
+            ops.flash_attention(q, k, v)
+    want_b = cost.rmsnorm_bytes(x.shape[0], x.shape[1], 2)
+    want_f = cost.flash_flops(b, hq, t, t, d, d, True)
+    log(f"  counted: one rmsnorm [{x.shape[0]}, {x.shape[1]}] bf16 call "
+        f"{c1.totals.hbm_bytes:.0f} bytes (cost.py {want_b}); one "
+        f"flash_attention [{b}, {hq}/{hkv}, {t}, {d}] causal call "
+        f"{c2.totals.flops:.0f} flops (cost.py {want_f})")
+    if c1.totals.hbm_bytes != want_b or c2.totals.flops != want_f:
+        raise RuntimeError("the counter disagrees with kernels/cost.py")
+    return host
+
+
+def phase_dryrun(dev, peak: float, out: Path, cells: list) -> dict:
+    """Phase 14: the kernel ops (:func:`phase_kernel_ops`), the training
+    step on a mesh and counted (:func:`phase_counted_step`), and the
+    dry-run's cells, which ran beside phase 4's graph generation
+    (``cells``: :func:`wait_dryrun`'s result)."""
+    t_phase = time.perf_counter()
+    host = phase_kernel_ops(dev)
+    step = phase_counted_step(dev, peak)
+    reports = report_dryrun(cells, out)
+    log(f"  phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return {"host": host, "step": step, "cells": sorted(reports)}
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
@@ -3721,6 +4106,7 @@ def main() -> int:
     # under torch.use_deterministic_algorithms); set before its first use
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import cost
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on the card only",
@@ -3764,8 +4150,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    bandwidth = card_rate(BANDWIDTH, kind)
-    peak = card_rate(PEAK_BF16, kind)
+    bandwidth = cost.card_rate(cost.BANDWIDTH, kind)
+    peak = cost.card_rate(cost.PEAK_BF16, kind)
     log(f"  card: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; bound at {bandwidth / 1e12:.2f} TB/s and "
         f"{peak / 1e12:.0f} TFLOP/s (bf16)")
@@ -3783,8 +4169,19 @@ def main() -> int:
     log("phase 3: mid-size exactness")
     g_mid, tri_mid, mid_runs = phase_mid(dev)
     log("phase 4: full size (main path)")
+    # phase 14's dry-run cells run in subprocesses (their fake worlds never
+    # meet this process's NCCL world) beside phase 4's graph generation:
+    # host set-up, untimed as the port's; every timed run of the script
+    # starts after they end
+    dry_out = ROOT / "results" / "dryrun_torch"
+    dry_out.mkdir(parents=True, exist_ok=True)
+    for old in dry_out.glob("*.json"):
+        old.unlink()
+    dry_t0, dry = time.perf_counter(), []
+    dry_procs = start_dryrun(dry_out)
     with gc_paused():
-        launches, g_full, tri_full, full_levels = phase_full(dev)
+        launches, g_full, tri_full, full_levels = phase_full(
+            dev, lambda: dry.extend(wait_dryrun(dry_procs, dry_t0)))
     log("phase 5: LM serving path at full width (qwen2-0.5b)")
     launches.update(phase_lm(dev))
     # phase 9 right after phase 5: the card then holds nothing of the
@@ -3825,6 +4222,11 @@ def main() -> int:
         log("phase 13: GNN training at full width (gin-tu, pna, egnn, "
             "meshgraphnet), gnn_dist over NCCL, the motif example")
         phase_gnn(dev)
+    log("phase 14: the dry-run tooling (the kernel ops; a qwen2-0.5b "
+        "training step on a (1, 1) mesh against no mesh, and the op counter "
+        "on it; the cells on the 16 x 16 and 2 x 16 x 16 meshes, run in "
+        "subprocesses beside phase 4's graph generation)")
+    phase_dryrun(dev, peak, dry_out, dry)
 
     sources = {"sorted_intersect": ("src/repro_torch/csrc/sorted_intersect.cu",
                                     "src/repro/kernels/sorted_intersect.py:50"),

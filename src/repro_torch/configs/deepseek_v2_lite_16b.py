@@ -9,7 +9,7 @@ the assignment block's note belong to the full V2.)
 import torch
 
 from ..models.transformer import LMConfig
-from . import ArchSpec
+from .base import ArchSpec, lm_shapes, lm_smoke_shapes
 
 CONFIG = LMConfig(
     name="deepseek-v2-lite-16b",
@@ -29,10 +29,13 @@ def _smoke() -> ArchSpec:
                    moe=True, n_experts=8, n_shared=2, top_k=2, moe_d_ff=64,
                    first_dense_layers=1, dtype=torch.float32, remat=False)
     return ArchSpec(
-        name="deepseek-v2-lite-16b/smoke", family="lm", model_cfg=cfg)
+        name="deepseek-v2-lite-16b/smoke", family="lm", model_cfg=cfg,
+        shapes=lm_smoke_shapes())
 
 
 SPEC = ArchSpec(
     name="deepseek-v2-lite-16b", family="lm", model_cfg=CONFIG,
-    source="arXiv:2405.04434; hf",
+    shapes=lm_shapes(), source="arXiv:2405.04434; hf",
+    applicability=("BENU inapplicable; MoE experts sharded over the model "
+                   "axis (EP), MLA compressed KV cache in decode"),
     smoke_builder=_smoke)

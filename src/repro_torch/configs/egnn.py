@@ -5,7 +5,7 @@ equivariant coordinate updates.
 """
 
 from ..models.gnn import GNNConfig
-from . import ArchSpec, ShapeSpec, gnn_shapes
+from .base import ArchSpec, ShapeSpec, gnn_shapes
 
 CONFIG = GNNConfig(name="egnn", kind="egnn", n_layers=4, d_hidden=64,
                    d_feat=16, n_out=7, task="node_class")
@@ -23,4 +23,7 @@ def _smoke() -> ArchSpec:
 
 SPEC = ArchSpec(
     name="egnn", family="gnn", model_cfg=CONFIG, shapes=gnn_shapes(),
-    source="arXiv:2102.09844; paper", smoke_builder=_smoke)
+    source="arXiv:2102.09844; paper",
+    applicability=("substrate reuse; E(n)-equivariant coordinate updates "
+                   "ride the same scatter path"),
+    smoke_builder=_smoke)

@@ -6,7 +6,7 @@ motif counts feed it as features in ``examples/motif_features_torch.py``.
 """
 
 from ..models.gnn import GNNConfig
-from . import ArchSpec, ShapeSpec, gnn_shapes
+from .base import ArchSpec, ShapeSpec, gnn_shapes
 
 CONFIG = GNNConfig(name="gin-tu", kind="gin", n_layers=5, d_hidden=64,
                    d_feat=16, n_out=7, task="node_class")
@@ -28,4 +28,8 @@ def _smoke() -> ArchSpec:
 
 SPEC = ArchSpec(
     name="gin-tu", family="gnn", model_cfg=CONFIG, shapes=gnn_shapes(),
-    source="arXiv:1810.00826; paper", smoke_builder=_smoke)
+    source="arXiv:1810.00826; paper",
+    applicability=("substrate reuse; BENU itself ships as a motif-count "
+                   "feature extractor for GIN inputs "
+                   "(examples/motif_features.py)"),
+    smoke_builder=_smoke)

@@ -9,7 +9,7 @@ port.)
 import torch
 
 from ..models.transformer import LMConfig
-from . import ArchSpec
+from .base import ArchSpec, lm_shapes, lm_smoke_shapes
 
 CONFIG = LMConfig(
     name="granite-moe-3b-a800m",
@@ -26,10 +26,12 @@ def _smoke() -> ArchSpec:
                    tie_embeddings=True, moe=True, n_experts=5, n_shared=0,
                    top_k=2, moe_d_ff=64, dtype=torch.float32, remat=False)
     return ArchSpec(
-        name="granite-moe-3b-a800m/smoke", family="lm", model_cfg=cfg)
+        name="granite-moe-3b-a800m/smoke", family="lm", model_cfg=cfg,
+        shapes=lm_smoke_shapes())
 
 
 SPEC = ArchSpec(
     name="granite-moe-3b-a800m", family="lm", model_cfg=CONFIG,
-    source="hf:ibm-granite/granite-3.0 family",
+    shapes=lm_shapes(), source="hf:ibm-granite/granite-3.0 family",
+    applicability="BENU inapplicable; EP over the model axis",
     smoke_builder=_smoke)

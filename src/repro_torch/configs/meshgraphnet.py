@@ -6,7 +6,7 @@ regression targets.
 """
 
 from ..models.gnn import GNNConfig
-from . import ArchSpec, ShapeSpec, gnn_shapes
+from .base import ArchSpec, ShapeSpec, gnn_shapes
 
 CONFIG = GNNConfig(name="meshgraphnet", kind="mgn", n_layers=15,
                    d_hidden=128, d_feat=16, n_out=3, task="node_reg",
@@ -25,4 +25,8 @@ def _smoke() -> ArchSpec:
 
 SPEC = ArchSpec(
     name="meshgraphnet", family="gnn", model_cfg=CONFIG, shapes=gnn_shapes(),
-    source="arXiv:2010.03409; unverified", smoke_builder=_smoke)
+    source="arXiv:2010.03409; unverified",
+    applicability=("direct substrate reuse: the segment_sum edge->node "
+                   "scatter and the sharded row gather are the same "
+                   "primitives BENU's DBQ/rowstore uses"),
+    smoke_builder=_smoke)

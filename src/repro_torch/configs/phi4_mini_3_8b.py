@@ -6,7 +6,7 @@
 import torch
 
 from ..models.transformer import LMConfig
-from . import ArchSpec
+from .base import ArchSpec, lm_shapes, lm_smoke_shapes
 
 CONFIG = LMConfig(
     name="phi4-mini-3.8b",
@@ -20,10 +20,13 @@ def _smoke() -> ArchSpec:
                    n_heads=4, n_kv_heads=2, d_head=32, d_ff=256, vocab=512,
                    tie_embeddings=True, dtype=torch.float32, remat=False)
     return ArchSpec(
-        name="phi4-mini-3.8b/smoke", family="lm", model_cfg=cfg)
+        name="phi4-mini-3.8b/smoke", family="lm", model_cfg=cfg,
+        shapes=lm_smoke_shapes())
 
 
 SPEC = ArchSpec(
     name="phi4-mini-3.8b", family="lm", model_cfg=CONFIG,
-    source="arXiv:2412.08905; hf",
+    shapes=lm_shapes(), source="arXiv:2412.08905; hf",
+    applicability=("BENU inapplicable (no graph-structured data access); "
+                   "standard pjit sharding, no technique integration"),
     smoke_builder=_smoke)

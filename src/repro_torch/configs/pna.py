@@ -5,7 +5,7 @@ scalers=identity-amplification-attenuation.
 """
 
 from ..models.gnn import GNNConfig
-from . import ArchSpec, ShapeSpec, gnn_shapes
+from .base import ArchSpec, ShapeSpec, gnn_shapes
 
 CONFIG = GNNConfig(name="pna", kind="pna", n_layers=4, d_hidden=75,
                    d_feat=16, n_out=7, task="node_class")
@@ -23,4 +23,6 @@ def _smoke() -> ArchSpec:
 
 SPEC = ArchSpec(
     name="pna", family="gnn", model_cfg=CONFIG, shapes=gnn_shapes(),
-    source="arXiv:2004.05718; paper", smoke_builder=_smoke)
+    source="arXiv:2004.05718; paper",
+    applicability="substrate reuse (segment reductions x 4 aggregators)",
+    smoke_builder=_smoke)

@@ -6,7 +6,7 @@
 import torch
 
 from ..models.transformer import LMConfig
-from . import ArchSpec
+from .base import ArchSpec, lm_shapes, lm_smoke_shapes
 
 CONFIG = LMConfig(
     name="qwen2-0.5b",
@@ -21,10 +21,12 @@ def _smoke() -> ArchSpec:
                    qkv_bias=True, tie_embeddings=True, dtype=torch.float32,
                    remat=False)
     return ArchSpec(
-        name="qwen2-0.5b/smoke", family="lm", model_cfg=cfg)
+        name="qwen2-0.5b/smoke", family="lm", model_cfg=cfg,
+        shapes=lm_smoke_shapes())
 
 
 SPEC = ArchSpec(
     name="qwen2-0.5b", family="lm", model_cfg=CONFIG,
-    source="arXiv:2407.10671; hf",
+    shapes=lm_shapes(), source="arXiv:2407.10671; hf",
+    applicability="BENU inapplicable; standard pjit sharding",
     smoke_builder=_smoke)

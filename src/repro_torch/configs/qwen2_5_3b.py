@@ -7,7 +7,7 @@ card hf:Qwen/Qwen2.5-0.5B).
 import torch
 
 from ..models.transformer import LMConfig
-from . import ArchSpec
+from .base import ArchSpec, lm_shapes, lm_smoke_shapes
 
 CONFIG = LMConfig(
     name="qwen2.5-3b",
@@ -22,10 +22,12 @@ def _smoke() -> ArchSpec:
                    qkv_bias=True, tie_embeddings=True, dtype=torch.float32,
                    remat=False)
     return ArchSpec(
-        name="qwen2.5-3b/smoke", family="lm", model_cfg=cfg)
+        name="qwen2.5-3b/smoke", family="lm", model_cfg=cfg,
+        shapes=lm_smoke_shapes())
 
 
 SPEC = ArchSpec(
     name="qwen2.5-3b", family="lm", model_cfg=CONFIG,
-    source="hf:Qwen/Qwen2.5-3B",
+    shapes=lm_shapes(), source="hf:Qwen/Qwen2.5-3B",
+    applicability="BENU inapplicable; standard pjit sharding",
     smoke_builder=_smoke)

@@ -1213,3 +1213,14 @@ def make_executor(engine: str, **backend_kwargs) -> Executor:
         raise ValueError(
             f"unknown engine {engine!r}; choose from {sorted(BACKENDS)}")
     return Executor(cls(**backend_kwargs))
+
+
+def build_benu_step(plan: Plan, spec, group, caps: Sequence[int],
+                    req_cap: int, rebalance: bool = True):
+    """The distributed enumeration step the dry-run traces for the BENU
+    cell: the step :class:`DistBackend` executes (this rank's
+    ``build_distributed_step`` over ``group``), exposed so that
+    launch/steps.py routes through the unified API."""
+    from .engine_dist import build_distributed_step
+    return build_distributed_step(plan, spec, group, list(caps), req_cap,
+                                  rebalance=rebalance)

@@ -33,7 +33,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from . import build, ref
+from . import build, cost, ref
+from .library import define, direct
 
 #: launches of the forward kernel (``csrc/flash_attention.cu``) by
 #: :func:`flash_attention_cuda` and :func:`flash_attention_lse_cuda` since
@@ -132,8 +133,11 @@ def empty_like_q(q: torch.Tensor, dv: int) -> torch.Tensor:
     return out.permute([order.index(i) for i in range(4)])
 
 
-def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             causal: bool, scale: Optional[float], with_lse: bool):
+def launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool, scale: Optional[float], with_lse: bool):
+    """The forward kernel's launch through ctypes (the CUDA
+    implementation of the ``repro_torch::flash_attention`` ops): checks,
+    allocates, launches. Returns ``(out, lse or None)``."""
     global launches
     strides = _check_qkv(q, k, v)
     b, hq, tq, d = q.shape
@@ -171,8 +175,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     it out (so a transposed ``[B, T, H, dqk]`` q gives a transposed
     ``[B, T, H, dv]`` output). ``scale`` defaults to ``dqk ** -0.5``.
     Raises on any other input. The serving path: no ``lse`` is written.
+    The dispatcher op ``repro_torch::flash_attention`` (launched directly
+    when :func:`~repro_torch.kernels.library.direct`).
     """
-    return _forward(q, k, v, causal, scale, with_lse=False)[0]
+    if direct(q, k, v):
+        return launch_forward(q, k, v, causal, _scale(q, scale), False)[0]
+    _check_device(q)
+    return FWD(q, k, v, bool(causal), _scale(q, scale))
 
 
 def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -183,8 +192,11 @@ def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
     log-sum-exp ``lse`` [B, Hq, Tq] f32 (see
     :func:`repro_torch.kernels.ref.flash_attention`), which
     :func:`flash_attention_bwd_cuda` reads. One launch of the same
-    kernel."""
-    return _forward(q, k, v, causal, scale, with_lse=True)
+    kernel (the op ``repro_torch::flash_attention_lse``)."""
+    if direct(q, k, v):
+        return launch_forward(q, k, v, causal, _scale(q, scale), True)
+    _check_device(q)
+    return FWD_LSE(q, k, v, bool(causal), _scale(q, scale))
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -205,7 +217,21 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     laid out as ``torch.empty_like`` of q, k and v (dv of MLA's v, a view
     with gaps, is a contiguous tensor of v's shape). The kernel's plain
     version is
-    :func:`repro_torch.kernels.ref.flash_attention_backward`."""
+    :func:`repro_torch.kernels.ref.flash_attention_backward`. The
+    dispatcher op ``repro_torch::flash_attention_bwd``."""
+    if direct(q, k, v, out, lse, dout):
+        return launch_backward(q, k, v, out, lse, dout, causal,
+                               _scale(q, scale))
+    _check_device(q)
+    return BWD(q, k, v, out, lse, dout, bool(causal), _scale(q, scale))
+
+
+def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                    causal: bool = True, scale: Optional[float] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's launch through ctypes (the CUDA
+    implementation of ``repro_torch::flash_attention_bwd``)."""
     global bwd_launches
     strides = _check_qkv(q, k, v)
     b, hq, tq, d = q.shape
@@ -248,6 +274,120 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     build.check(lib, err, "flash_attention_bwd")
     bwd_launches += 1
     return dq, dk, dv
+
+
+def _check_device(q: torch.Tensor) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"q must be a CUDA tensor, got {q.device}")
+
+
+def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
+    return float(q.shape[3] ** -0.5 if scale is None else scale)
+
+
+# --------------------------------------------------------------------------
+# The dispatcher ops: fake implementations, counts, sharding rule
+# --------------------------------------------------------------------------
+
+
+def _fake_forward(q, k, v, causal, scale):
+    return empty_like_q(q, v.shape[3])
+
+
+def _fake_forward_lse(q, k, v, causal, scale):
+    b, hq, tq, _ = q.shape
+    return (empty_like_q(q, v.shape[3]),
+            q.new_empty((b, hq, tq), dtype=torch.float32))
+
+
+def _fake_backward(q, k, v, out, lse, dout, causal, scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _dims(q, k, v):
+    b, hq, tq, dqk = q.shape
+    return b, hq, k.shape[1], tq, k.shape[2], dqk, v.shape[3]
+
+
+def _fwd_bytes(q, k, v, causal, scale, with_lse=False):
+    b, hq, hkv, tq, tk, dqk, dv = _dims(q, k, v)
+    return cost.flash_bytes(b, hq, hkv, tq, tk, dqk, dv, q.element_size(),
+                            with_lse)
+
+
+def _fwd_flops(q, k, v, causal, scale, out=None):
+    b, hq, hkv, tq, tk, dqk, dv = _dims(q, k, v)
+    return cost.flash_flops(b, hq, tq, tk, dqk, dv, causal)
+
+
+def _bwd_bytes(q, k, v, out, lse, dout, causal, scale):
+    b, hq, hkv, tq, tk, dqk, dv = _dims(q, k, v)
+    return cost.flash_bwd_bytes(b, hq, hkv, tq, tk, dqk, dv,
+                                q.element_size())
+
+
+def _bwd_flops(q, k, v, o, lse, do, causal, scale, out=None):
+    b, hq, hkv, tq, tk, dqk, dv = _dims(q, k, v)
+    return cost.flash_bwd_flops(b, hq, tq, tk, dqk, dv, causal)
+
+
+def placements_for(q, k, mesh_sizes):
+    """Per mesh dim, the placement flash attention runs under: the
+    batch (dim 0) or the heads (dim 1) where ``q`` is sharded so and,
+    for the heads, both ``Hq`` and ``Hkv`` divide over that mesh dim (a
+    contiguous block of q heads then reads the matching block of kv
+    heads); else replicated. ``q`` / ``k`` are anything with ``.shape``
+    and ``.placements``."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for p, n in zip(q.placements, mesh_sizes):
+        if isinstance(p, Shard) and p.dim == 0:
+            out.append(Shard(0))
+        elif isinstance(p, Shard) and p.dim == 1 and q.shape[1] % n == 0 \
+                and k.shape[1] % n == 0:
+            out.append(Shard(1))
+        else:
+            out.append(Replicate())
+    return out
+
+
+def _sharding(n_in: int, n_out: int, k_arg: int = 1):
+    """The rule of a flash op with ``n_in`` leading tensor arguments
+    (then causal, scale) and ``n_out`` outputs: everything replicated,
+    over the batch, or over the heads (kept only where every tensor
+    divides: DTensor drops a strategy whose shard is uneven)."""
+    def rule(*args):
+        from torch.distributed.tensor import Replicate, Shard
+        q, k = args[0], args[k_arg]
+        out = [([Replicate()] * n_out, [Replicate()] * n_in + [None, None]),
+               ([Shard(0)] * n_out, [Shard(0)] * n_in + [None, None])]
+        if k.shape[1] and q.shape[1] % k.shape[1] == 0:
+            heads = [Shard(1)] * n_in
+            out.append(([Shard(1)] * n_out, heads + [None, None]))
+        return out
+    return rule
+
+
+FWD = define("flash_attention",
+             "(Tensor q, Tensor k, Tensor v, bool causal, float scale) "
+             "-> Tensor",
+             lambda q, k, v, causal, scale: launch_forward(
+                 q, k, v, causal, scale, False)[0],
+             _fake_forward, _fwd_bytes, _fwd_flops, _sharding(3, 1))
+FWD_LSE = define("flash_attention_lse",
+                 "(Tensor q, Tensor k, Tensor v, bool causal, float scale) "
+                 "-> (Tensor, Tensor)",
+                 lambda q, k, v, causal, scale: launch_forward(
+                     q, k, v, causal, scale, True),
+                 _fake_forward_lse,
+                 lambda *a: _fwd_bytes(*a, with_lse=True), _fwd_flops,
+                 _sharding(3, 2))
+BWD = define("flash_attention_bwd",
+             "(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, "
+             "Tensor dout, bool causal, float scale) "
+             "-> (Tensor, Tensor, Tensor)",
+             launch_backward, _fake_backward, _bwd_bytes, _bwd_flops,
+             _sharding(6, 3))
 
 
 class FlashPair(NamedTuple):

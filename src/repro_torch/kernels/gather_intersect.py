@@ -13,8 +13,9 @@ from __future__ import annotations
 
 import torch
 
-from . import build
-from .sorted_intersect import _check_int32_cuda
+from . import build, cost
+from .library import define, direct
+from .sorted_intersect import _check_int32_cuda, rows_rule
 
 #: launches of the CUDA kernel by :func:`gather_intersect_cuda` since the
 #: last reset (callers set it to 0)
@@ -29,7 +30,19 @@ def gather_intersect_cuda(ids: torch.Tensor, cand: torch.Tensor,
     padded sets, adj: int32[N+1, D] padded adjacency with N = sentinel and
     row N all-sentinel; all contiguous CUDA tensors on one device.
     Returns int32[B, Dc] in ``cand``'s slots. Raises on any other input.
+    The dispatcher op ``repro_torch::gather_intersect``.
     """
+    if direct(ids, cand, adj):
+        return launch(ids, cand, adj, sentinel)
+    if cand.device.type != "cuda":
+        raise ValueError(f"cand must be a CUDA tensor, got {cand.device}")
+    return OP(ids, cand, adj, int(sentinel))
+
+
+def launch(ids: torch.Tensor, cand: torch.Tensor, adj: torch.Tensor,
+           sentinel: int) -> torch.Tensor:
+    """The kernel's launch through ctypes (the CUDA implementation of
+    ``repro_torch::gather_intersect``)."""
     global launches
     _check_int32_cuda("ids", ids, 1)
     _check_int32_cuda("cand", cand, 2)
@@ -54,3 +67,11 @@ def gather_intersect_cuda(ids: torch.Tensor, cand: torch.Tensor,
     build.check(lib, err, "gather_intersect")
     launches += 1
     return out
+
+
+OP = define("gather_intersect",
+            "(Tensor ids, Tensor cand, Tensor adj, int sentinel) -> Tensor",
+            launch, lambda ids, cand, adj, sentinel: torch.empty_like(cand),
+            lambda ids, cand, adj, sentinel: cost.gather_intersect_bytes(
+                cand.shape[0], cand.shape[1], adj.shape[1]),
+            sharding=rows_rule((0, 1), (2,)))

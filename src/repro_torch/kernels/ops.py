@@ -31,6 +31,49 @@ def _needs_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _is_dtensor(t: torch.Tensor) -> bool:
+    return type(t).__name__ == "DTensor"
+
+
+def _local_flash(q, k, v, causal: bool, scale: Optional[float],
+                 impl: str):
+    """Flash attention on DTensors (the dry-run's programs): each rank
+    runs :func:`flash_attention` (the kernel, or the plain version on the
+    CPU) on its local block, laid out as the kernel op's sharding rule
+    lays it out (batch or heads, else replicated;
+    ``flash_attention.placements_for``)."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    pl = fa.placements_for(q, k, mesh.shape)
+    fn = local_map(lambda a, b, c: flash_attention(
+        a, b, c, causal=causal, scale=scale, impl=impl),
+        out_placements=pl, in_placements=(pl, pl, pl), device_mesh=mesh,
+        redistribute_inputs=True)
+    return fn(q, k, v)
+
+
+def _local_rmsnorm(x, gamma, eps: float, impl: str):
+    """RMSNorm on DTensors (the dry-run's programs): each rank normalises
+    its own rows (x keeps its layout over the leading dims, whole rows),
+    gamma whole on every rank; gamma's gradient is a partial sum over the
+    mesh dims that split the rows (replicated over the others, whose
+    ranks hold the same rows)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    last = x.ndim - 1
+    pl = [p if isinstance(p, Shard) and p.dim != last else Replicate()
+          for p in x.placements]
+    rep = [Replicate()] * mesh.ndim
+    dgamma = [Partial() if isinstance(p, Shard) else Replicate()
+              for p in pl]
+    fn = local_map(lambda a, g: rmsnorm(a, g, eps, impl),
+                   out_placements=pl, in_placements=(pl, rep),
+                   in_grad_placements=(pl, dgamma),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(x, gamma)
+
+
 def _check_binary_operands(a: torch.Tensor, b: torch.Tensor,
                            sentinel: int) -> None:
     """Loud precondition check for ``impl='binary'``.
@@ -38,14 +81,17 @@ def _check_binary_operands(a: torch.Tensor, b: torch.Tensor,
     The binary-search probe needs 2-D operands with a shared batch and
     ``b`` rows *fully ascending* with holes only in the tail (fresh DBQ
     rows are; INT results carry in-place holes — keep those on the ``a``
-    side). Violations raise a ValueError up front.
+    side). Violations raise a ValueError up front (a fake tensor, which a
+    dry-run traces, has no values to check).
     """
     if a.ndim != 2 or b.ndim != 2 or a.shape[0] != b.shape[0]:
         raise ValueError(
             "impl='binary' needs 2-D operands with a shared batch: got "
             f"a{tuple(a.shape)}, b{tuple(b.shape)}; pad/stack rows first "
             "or use impl='ref'")
-    if b.numel() and bool((b[:, 1:] < b[:, :-1]).any()):
+    from torch._subclasses.fake_tensor import is_fake
+    if b.numel() and not is_fake(b) and \
+            bool((b[:, 1:] < b[:, :-1]).any()):
         raise ValueError(
             "impl='binary' needs b rows fully ascending with holes "
             "only in the tail (sentinel-padded DBQ rows); this b has "
@@ -112,6 +158,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     backward is csrc/flash_attention_bwd.cu. See
     :func:`repro_torch.kernels.ref.flash_attention` for the masking.
     """
+    if type(q) is not torch.Tensor and _is_dtensor(q):
+        return _local_flash(q, k, v, causal, scale, impl)
     impl = dispatch.resolve_impl("flash_attention", impl,
                                  platform=q.device.type)
     if impl == "ref":
@@ -130,6 +178,8 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,
     through ``RMSNormFn``, whose backward is csrc/rmsnorm_bwd.cu) | ref
     (the plain version; autograd differentiates it).
     """
+    if type(x) is not torch.Tensor and _is_dtensor(x):
+        return _local_rmsnorm(x, gamma, eps, impl)
     impl = dispatch.resolve_impl("rmsnorm", impl, platform=x.device.type)
     if impl == "ref":
         return ref.rmsnorm(x, gamma, eps)

@@ -42,7 +42,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from . import build, ref
+from . import build, cost, ref
+from .library import define, direct
 
 #: launches of the CUDA kernel by :func:`rmsnorm_cuda` since the last
 #: reset (callers set it to 0)
@@ -147,7 +148,19 @@ def rmsnorm_cuda(x: torch.Tensor, gamma: torch.Tensor,
 
     x: [R, d] and gamma: [d], contiguous CUDA tensors of one dtype (f32 or
     bf16) on one device -> [R, d] in x's dtype. Raises on any other input.
+    The dispatcher op ``repro_torch::rmsnorm`` (launched directly when
+    :func:`~repro_torch.kernels.library.direct`).
     """
+    if direct(x, gamma):
+        return launch_forward(x, gamma, eps)
+    _check_device(x)
+    return FWD(x, gamma, float(eps))
+
+
+def launch_forward(x: torch.Tensor, gamma: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """The kernel's launch through ctypes (the CUDA implementation of
+    ``repro_torch::rmsnorm``): checks, plans, allocates, launches."""
     global launches
     check_float_cuda("x", x, 2, x.dtype)
     check_float_cuda("gamma", gamma, 1, x.dtype)
@@ -178,7 +191,18 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
     contiguous here when it is not. dx in x's dtype, dgamma in gamma's.
     The body is the forward's plan for x, g and gamma's alignment. Its
     plain version is :func:`repro_torch.kernels.ref.rmsnorm_backward`.
+    The dispatcher op ``repro_torch::rmsnorm_bwd``.
     """
+    if direct(x, gamma, g):
+        return launch_backward(x, gamma, g, eps)
+    _check_device(x)
+    return BWD(x, gamma, g, float(eps))
+
+
+def launch_backward(x: torch.Tensor, gamma: torch.Tensor,
+                    g: torch.Tensor, eps: float = 1e-6):
+    """The backward kernel's launch through ctypes (the CUDA
+    implementation of ``repro_torch::rmsnorm_bwd``)."""
     global bwd_launches
     check_float_cuda("x", x, 2, x.dtype)
     check_float_cuda("gamma", gamma, 1, x.dtype)
@@ -208,6 +232,43 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
     bwd_launches += 1
     bwd_body_launches[plan.body] += 1
     return dx, dgamma
+
+
+def _check_device(x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"x must be a CUDA tensor, got {x.device}")
+
+
+def _rows_rule(n_tensors: int, n_out: int, partial_outs=()):
+    """Sharding rule of an op over ``[R, d]`` rows whose first argument
+    and outputs are row tensors, the ``gamma`` argument (index 1) is
+    replicated: all replicated, or rows sharded (an output in
+    ``partial_outs``, a sum over the rows, is then a partial sum)."""
+    def rule(*args):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        outs = [Partial() if i in partial_outs else Shard(0)
+                for i in range(n_out)]
+        ins = [Replicate() if i == 1 else Shard(0)
+               for i in range(n_tensors)] + [None]
+        return [([Replicate()] * n_out, [Replicate()] * n_tensors + [None]),
+                (outs, ins)]
+    return rule
+
+
+FWD = define("rmsnorm", "(Tensor x, Tensor gamma, float eps) -> Tensor",
+             launch_forward, lambda x, gamma, eps: torch.empty_like(x),
+             lambda x, gamma, eps: cost.rmsnorm_bytes(
+                 x.shape[0], x.shape[1], x.element_size()),
+             sharding=_rows_rule(2, 1))
+BWD = define("rmsnorm_bwd",
+             "(Tensor x, Tensor gamma, Tensor g, float eps) "
+             "-> (Tensor, Tensor)",
+             launch_backward,
+             lambda x, gamma, g, eps: (torch.empty_like(x),
+                                       torch.empty_like(gamma)),
+             lambda x, gamma, g, eps: cost.rmsnorm_bwd_bytes(
+                 x.shape[0], x.shape[1], x.element_size()),
+             sharding=_rows_rule(3, 2, partial_outs=(1,)))
 
 
 class NormPair(NamedTuple):

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, cost
+from .library import define, direct
 
 #: launches of the CUDA kernel by :func:`sorted_intersect_cuda` since the
 #: last reset (callers set it to 0)
@@ -41,8 +42,18 @@ def sorted_intersect_cuda(a: torch.Tensor, b: torch.Tensor,
 
     a: int32[B, Da], b: int32[B, Db] contiguous CUDA padded sets (widths may
     differ, ``Db <= MAX_DB``) -> int32[B, Da]. Raises on any other
-    input.
+    input. The dispatcher op ``repro_torch::sorted_intersect``.
     """
+    if direct(a, b):
+        return launch(a, b, sentinel)
+    if a.device.type != "cuda":
+        raise ValueError(f"a must be a CUDA tensor, got {a.device}")
+    return OP(a, b, int(sentinel))
+
+
+def launch(a: torch.Tensor, b: torch.Tensor, sentinel: int) -> torch.Tensor:
+    """The kernel's launch through ctypes (the CUDA implementation of
+    ``repro_torch::sorted_intersect``)."""
     global launches
     _check_int32_cuda("a", a, 2)
     _check_int32_cuda("b", b, 2)
@@ -63,3 +74,25 @@ def sorted_intersect_cuda(a: torch.Tensor, b: torch.Tensor,
     build.check(lib, err, "sorted_intersect")
     launches += 1
     return out
+
+
+def rows_rule(row_args, replicated_args=(), n_scalars=1):
+    """Sharding rule of an op whose outputs and ``row_args`` (argument
+    indices) are sharded by rows together, ``replicated_args`` whole on
+    every rank, then ``n_scalars`` non-tensor arguments: all
+    replicated, or rows sharded."""
+    def rule(*args):
+        from torch.distributed.tensor import Replicate, Shard
+        n = len(row_args) + len(replicated_args)
+        ins = [Shard(0) if i in row_args else Replicate() for i in range(n)]
+        return [([Replicate()], [Replicate()] * n + [None] * n_scalars),
+                ([Shard(0)], ins + [None] * n_scalars)]
+    return rule
+
+
+OP = define("sorted_intersect",
+            "(Tensor a, Tensor b, int sentinel) -> Tensor",
+            launch, lambda a, b, sentinel: torch.empty_like(a),
+            lambda a, b, sentinel: cost.sorted_intersect_bytes(
+                a.shape[0], a.shape[1], b.shape[1]),
+            sharding=rows_rule((0, 1)))

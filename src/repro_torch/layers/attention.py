@@ -31,7 +31,8 @@ import torch
 from torch import nn
 
 from ..kernels import ops as kops
-from .common import dense_init, rmsnorm
+from .common import NO_SHARD, ShardCtx, _is_dtensor, dense_init, \
+    merge_heads, rmsnorm
 from .rope import apply_rope
 
 NEG_INF = -1e30
@@ -39,11 +40,15 @@ NEG_INF = -1e30
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, length: int,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None, group=None,
+                     offset: int = 0) -> torch.Tensor:
     """Single-step GQA decode. q: [B, 1, Hq, d]; caches [B, S, Hkv, d];
     ``length``: number of valid cache entries. q head ``i`` reads KV head
     ``i // (Hq // Hkv)``; entries at or past ``length`` are masked with the
-    finite ``NEG_INF``."""
+    finite ``NEG_INF``. With ``group`` (a sequence-sharded cache) the
+    caches are this rank's block, which starts at position ``offset``,
+    and the softmax and the context are combined across the group's
+    ranks (:func:`_decode_softmax`)."""
     b, _, hq, d = q.shape
     s_max, hkv = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
@@ -52,9 +57,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     qg = q.reshape(b, 1, hkv, g, d).float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache.float()) * scale
     kpos = torch.arange(s_max, device=q.device)
-    s = s.masked_fill(kpos >= length, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.float())
+    s = s.masked_fill(kpos >= length - offset, NEG_INF)
+    p = _decode_softmax(s, group)
+    out = _sum_over(torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.float()),
+                    group)
     return out.reshape(b, 1, hq, d).to(q.dtype)
 
 
@@ -70,6 +76,63 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                v.transpose(1, 2), causal=causal,
                                scale=scale, impl=impl)
     return out.transpose(1, 2)
+
+
+def _decode_softmax(s: torch.Tensor, group=None) -> torch.Tensor:
+    """``softmax(s)`` over the last (key) axis. With ``group`` the keys
+    are split across its ranks (a sequence-sharded cache): the partial
+    max and sum of exponentials are all-reduced (flash-decode's combine),
+    and each rank keeps the probabilities of its own keys."""
+    if group is None:
+        return torch.softmax(s, dim=-1)
+    import torch.distributed._functional_collectives as funcol
+    m = funcol.all_reduce(s.amax(dim=-1, keepdim=True), "max", group)
+    e = torch.exp(s - m)
+    return e / funcol.all_reduce(e.sum(dim=-1, keepdim=True), "sum", group)
+
+
+def _sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``'s ranks (``x`` itself without one)."""
+    if group is None:
+        return x
+    import torch.distributed._functional_collectives as funcol
+    return funcol.all_reduce(x, "sum", group)
+
+
+def _seq_sharded(t: torch.Tensor):
+    """For a cache DTensor ``t`` ``[B, S, ...]`` whose sequence axis may
+    be sharded: ``(the batch placements, the group of the sequence's
+    ranks or None, this rank's first position)``."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = t.device_mesh
+    seq = [i for i, p in enumerate(t.placements)
+           if isinstance(p, Shard) and p.dim == 1]
+    batch = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+             for p in t.placements]
+    if not seq:
+        group = None
+    elif len(seq) == mesh.ndim:
+        group = dist.group.WORLD
+    elif len(seq) == 1:
+        group = (mesh, seq[0])
+    else:
+        raise ValueError(f"cache placements {t.placements}: the sequence "
+                         "must lie over one mesh axis or over all")
+    # this rank's block of the (evenly split) sequence: its coordinate
+    # along the sequence's mesh dims, major first
+    coord, block = mesh.get_coordinate(), 0
+    for i in seq:
+        block = block * mesh.shape[i] + coord[i]
+    return batch, group, block * t.to_local().shape[1]
+
+
+def _write_local(cache_local: torch.Tensor, new: torch.Tensor,
+                 pos: int) -> None:
+    """Write the new entry at ``pos`` of this rank's block of the
+    sequence, when it falls there."""
+    if 0 <= pos < cache_local.shape[1]:
+        cache_local[:, pos:pos + new.shape[1]] = new
 
 
 def init_gqa_cache(b: int, s_max: int, n_kv: int, d_head: int,
@@ -116,7 +179,7 @@ class GQAAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[Dict] = None, attn_impl: str = "auto",
-                norm_impl: str = "auto"
+                norm_impl: str = "auto", ctx: ShardCtx = NO_SHARD
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
         """x: [B, T, D]. With ``cache`` (decode): T == 1 and the cache
         ``{k, v, length}`` is written in place; returns (out [B, T, D],
@@ -126,11 +189,16 @@ class GQAAttention(nn.Module):
         q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
         if self.bq is not None:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
-        q = apply_rope(q.reshape(b, t, h, dh), positions, self.rope_theta)
-        k = apply_rope(k.reshape(b, t, kvh, dh), positions, self.rope_theta)
-        v = v.reshape(b, t, kvh, dh)
+        q = ctx.shard(ctx.split_heads(q, h, dh), ctx.dp, None, ctx.tp, None)
+        q = apply_rope(q, positions, self.rope_theta)
+        k = apply_rope(ctx.split_heads(k, kvh, dh), positions,
+                       self.rope_theta)
+        v = ctx.split_heads(v, kvh, dh)
 
-        if cache is not None:
+        if cache is not None and ctx.mesh is not None \
+                and _is_dtensor(cache["k"]):
+            out = self._decode_sharded(q, k, v, cache, ctx)
+        elif cache is not None:
             length = cache["length"]
             s_max = cache["k"].shape[1]
             if length + t > s_max:
@@ -142,8 +210,27 @@ class GQAAttention(nn.Module):
             out = decode_attention(q, cache["k"], cache["v"], length + t)
         else:
             out = full_attention(q, k, v, causal=True, impl=attn_impl)
-        out = out.reshape(b, t, h * dh) @ self.wo
-        return out, cache
+        out = merge_heads(out) @ self.wo
+        return ctx.shard(out, ctx.dp, None, None), cache
+
+    def _decode_sharded(self, q, k, v, cache: Dict, ctx: ShardCtx):
+        """:func:`decode_attention` on this rank's block of a cache whose
+        sequence is sharded (decode_32k: over ``tp``; long_500k: over
+        every axis), the softmax combined across the sequence's ranks.
+        q, k, v and the output carry the cache's batch layout."""
+        from torch.distributed.tensor import DTensor
+        batch, group, first = _seq_sharded(cache["k"])
+        mesh = ctx.mesh
+        ql, kl, vl = (x.redistribute(mesh, batch).to_local()
+                      for x in (q, k, v))
+        kc, vc = cache["k"].to_local(), cache["v"].to_local()
+        length = cache["length"]
+        _write_local(kc, kl, length - first)
+        _write_local(vc, vl, length - first)
+        cache["length"] = length + 1
+        out = decode_attention(ql, kc, vc, length + 1, group=group,
+                               offset=first)
+        return DTensor.from_local(out, mesh, batch, run_check=False)
 
 
 # --------------------------------------------------------------------------
@@ -154,13 +241,16 @@ class GQAAttention(nn.Module):
 def mla_decode_attention(q_nope: torch.Tensor, q_rope: torch.Tensor,
                          ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
                          wk_b: torch.Tensor, wv_b: torch.Tensor,
-                         length: int, scale: float) -> torch.Tensor:
+                         length: int, scale: float, group=None,
+                         offset: int = 0) -> torch.Tensor:
     """Absorbed MLA decode in f32. q_nope [B, T, H, nope], q_rope
     [B, T, H, rope]; caches ``c_kv`` [B, S, r] and ``k_rope`` [B, S, rope];
     wk_b [r, H, nope], wv_b [r, H, v]. q_nope is taken into the latent
     space by wk_b, scored against ``c_kv`` (plus the rope part against
     ``k_rope``), and the latent context is expanded by wv_b. Entries at
-    or past ``length`` are masked with ``NEG_INF``. -> [B, T, H, v] f32."""
+    or past ``length`` are masked with ``NEG_INF``. ``group`` and
+    ``offset`` as :func:`decode_attention`'s (the latent context is
+    combined before the expansion). -> [B, T, H, v] f32."""
     q_lat = torch.einsum("bthn,rhn->bthr", q_nope.float(), wk_b.float())
     ckv = ckv_cache.float()
     s = torch.einsum("bthr,bsr->bhts", q_lat, ckv)
@@ -168,9 +258,9 @@ def mla_decode_attention(q_nope: torch.Tensor, q_rope: torch.Tensor,
                          krope_cache.float())
     s = s * scale
     kpos = torch.arange(ckv.shape[1], device=ckv.device)
-    s = s.masked_fill(kpos >= length, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    ctx = torch.einsum("bhts,bsr->bthr", p, ckv)
+    s = s.masked_fill(kpos >= length - offset, NEG_INF)
+    p = _decode_softmax(s, group)
+    ctx = _sum_over(torch.einsum("bhts,bsr->bthr", p, ckv), group)
     return torch.einsum("bthr,rhv->bthv", ctx, wv_b.float())
 
 
@@ -209,7 +299,7 @@ class MLAAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[Dict] = None, attn_impl: str = "auto",
-                norm_impl: str = "auto"
+                norm_impl: str = "auto", ctx: ShardCtx = NO_SHARD
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
         """x: [B, T, D]. Without ``cache``: the expanded prefill through
         the flash op (q and k ``nope + rope`` wide, v ``v`` wide, scale
@@ -232,7 +322,11 @@ class MLAAttention(nn.Module):
                             self.rope_theta)              # [B, T, 1, rope]
         wkv_b = self.wkv_b.view(r, h, nope + vd)
 
-        if cache is not None:
+        if cache is not None and ctx.mesh is not None \
+                and _is_dtensor(cache["c_kv"]):
+            out = self._decode_sharded(q_nope, q_rope, c_kv, k_rope, wkv_b,
+                                       cache, scale, ctx).to(x.dtype)
+        elif cache is not None:
             length = cache["length"]
             s_max = cache["c_kv"].shape[1]
             if length + t > s_max:
@@ -249,9 +343,32 @@ class MLAAttention(nn.Module):
             kv = (c_kv @ self.wkv_b).view(b, t, h, nope + vd)
             k = torch.cat([kv[..., :nope],
                            k_rope.expand(b, t, h, rope_d)], dim=-1)
-            qq = torch.cat([q_nope, q_rope], dim=-1)
+            qq = ctx.shard(torch.cat([q_nope, q_rope], dim=-1), ctx.dp, None,
+                           ctx.tp, None)
             # v is a view of kv, read in place by the kernel
             out = full_attention(qq, k, kv[..., nope:], causal=True,
                                  impl=attn_impl, scale=scale)
-        out = out.reshape(b, t, h * vd) @ self.wo
-        return out, cache
+        out = merge_heads(out) @ self.wo
+        return ctx.shard(out, ctx.dp, None, None), cache
+
+    def _decode_sharded(self, q_nope, q_rope, c_kv, k_rope, wkv_b,
+                        cache: Dict, scale: float, ctx: ShardCtx):
+        """:func:`mla_decode_attention` on this rank's block of a cache
+        whose sequence is sharded, the softmax and the latent context
+        combined across the sequence's ranks. -> [B, T, H, v] f32 in the
+        cache's batch layout."""
+        from torch.distributed.tensor import DTensor, Replicate
+        batch, group, first = _seq_sharded(cache["c_kv"])
+        mesh = ctx.mesh
+        qn, qr, ck, kr = (x.redistribute(mesh, batch).to_local()
+                          for x in (q_nope, q_rope, c_kv, k_rope))
+        w = wkv_b.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+        ckv, krc = cache["c_kv"].to_local(), cache["k_rope"].to_local()
+        length = cache["length"]
+        _write_local(ckv, ck, length - first)
+        _write_local(krc, kr[:, :, 0], length - first)
+        cache["length"] = length + 1
+        out = mla_decode_attention(qn, qr, ckv, krc, w[..., :self.qk_nope],
+                                   w[..., self.qk_nope:], length + 1, scale,
+                                   group=group, offset=first)
+        return DTensor.from_local(out, mesh, batch, run_check=False)

@@ -1,20 +1,119 @@
-"""Shared layer utilities: init helpers, RMSNorm, layernorm, swish and
-the softmax cross entropy.
+"""Shared layer utilities: the sharding context, init helpers, RMSNorm,
+layernorm, swish and the softmax cross entropy.
 
-Counterpart of ``repro/layers/common.py``. Its ``ShardCtx`` is a no-op
-without a mesh and is left out until the multi-device slice. Init draws
-from an explicit ``torch.Generator`` on the parameter's device.
+Counterpart of ``repro/layers/common.py``. Sharding is expressed through
+a :class:`ShardCtx`: a no-op without a mesh (every single-card path), and
+with a ``DeviceMesh`` a ``redistribute`` of a ``DTensor`` to the
+placements its axes name (the counterpart of
+``with_sharding_constraint``; the dry-run's programs). Init draws from an
+explicit ``torch.Generator`` on the parameter's device.
+
+Axis conventions (see launch/mesh.py):
+    dp axes   batch-parallel axes ("data", plus "pod" when multi-pod)
+    tp axis   "model" (tensor/TP, experts, vocab, KV-sequence in decode)
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from dataclasses import dataclass
+from typing import Any, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..kernels import ops as kops
+
+Axis = Union[None, str, Tuple[str, ...]]
+
+
+@dataclass(frozen=True)
+class ShardCtx:
+    """Mesh + axis naming used by model code for activation layouts."""
+
+    mesh: Any = None       # a torch DeviceMesh, or None
+    dp: Axis = None        # batch axes, e.g. ("pod", "data") or "data"
+    tp: Axis = None        # model axis
+
+    def shard(self, x: torch.Tensor, *axes: Axis) -> torch.Tensor:
+        """``x`` laid out as ``axes`` (one entry per dim): a no-op without
+        a mesh or on a plain tensor; a ``DTensor`` is redistributed. An
+        axis that does not divide its dim is dropped (GSPMD would pad; a
+        DTensor's views and their backward need even shards)."""
+        if self.mesh is None or not _is_dtensor(x):
+            return x
+        from ..launch.shardings import mesh_shape, placements, sanitize_one
+        axes = sanitize_one(axes, x.shape, mesh_shape(self.mesh),
+                            rehome=False)
+        want = placements(axes, self.mesh)
+        if tuple(x.placements) == tuple(want):
+            return x
+        return x.redistribute(self.mesh, want)
+
+    def split_heads(self, x: torch.Tensor, h: int, d: int) -> torch.Tensor:
+        """``[B, T, h * d] -> [B, T, h, d]``. With a mesh the flattened
+        dim is first laid out over ``tp`` when ``tp`` divides ``h`` and
+        replicated otherwise, since a view cannot split an uneven
+        shard; then each rank splits its own block (the same placements:
+        a block of the width is a block of heads), so that the gradient's
+        merge is a plain reshape of the local block (DTensor's view
+        refuses the kernels' strided gradients)."""
+        b, t = x.shape[0], x.shape[1]
+        if self.mesh is None or not _is_dtensor(x):
+            return x.reshape(b, t, h, d)
+        from torch.distributed.tensor import DTensor
+        from ..launch.shardings import axis_size, mesh_shape
+        tp_ok = h % axis_size(self.tp, mesh_shape(self.mesh)) == 0
+        x = self.shard(x, self.dp, None, self.tp if tp_ok else None)
+        loc = x.to_local()
+        return DTensor.from_local(
+            loc.reshape(loc.shape[0], t, -1, d), x.device_mesh, x.placements,
+            run_check=False, shape=(b, t, h, d),
+            stride=(t * h * d, h * d, d, 1))
+
+    @property
+    def dp_size(self) -> int:
+        if self.mesh is None or self.dp is None:
+            return 1
+        from ..launch.shardings import axis_size, mesh_shape
+        return axis_size(self.dp, mesh_shape(self.mesh))
+
+
+def keep_layout(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor ``x`` as it is, whose gradient is laid out as ``x`` on
+    its way back (DTensor hands a reduction's gradient back replicated,
+    and its backward then fills global-size tensors)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(x.to_local(), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """``[B, T, H, d] -> [B, T, H * d]``. A DTensor is laid out over its
+    batch dim alone and reshaped on its local shard, so that its gradient
+    comes back in that layout: DTensor's own view cannot merge heads it
+    holds in a kernel's strided output, nor split a gradient whose width
+    is sharded over a mesh dim that does not divide the heads."""
+    b, t = x.shape[0], x.shape[1]
+    if not _is_dtensor(x):
+        return x.reshape(b, t, -1)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in x.placements]
+    loc = x.redistribute(x.device_mesh, pl).to_local()
+    width = x.shape[2] * x.shape[3]
+    return DTensor.from_local(loc.reshape(loc.shape[0], t, width),
+                              x.device_mesh, pl, run_check=False,
+                              shape=(b, t, width), stride=(t * width, width,
+                                                            1))
+
+
+def _is_dtensor(x: Any) -> bool:
+    return type(x).__name__ == "DTensor"      # no import on the hot path
+
+
+NO_SHARD = ShardCtx()
 
 
 def dense_init(gen: torch.Generator, shape: Sequence[int],
@@ -60,9 +159,23 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     ``z_loss * mean(lse^2)`` when ``z_loss`` is set. logits [..., V],
     labels [...] integer ids."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    loss = (lse - ll).mean()
+    if _is_dtensor(logits):
+        # over a vocab-sharded DTensor both terms are sums over the vocab's
+        # ranks (partial sums, then an all-reduce): DTensor's logsumexp and
+        # gather would gather the logits whole, and their backward would
+        # fill a tensor of the global batch's size
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        lse = (logits - m).exp().sum(dim=-1).log() + m[..., 0]
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        hit = (vocab == labels[..., None].long()).redistribute(
+            logits.device_mesh, logits.placements)     # the logits' layout
+        ll = torch.where(hit, logits, 0.0).sum(dim=-1)
+        tok = keep_layout(lse - ll)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        tok = lse - ll
+    loss = tok.mean()
     if z_loss:
         loss = loss + z_loss * (lse ** 2).mean()
     return loss

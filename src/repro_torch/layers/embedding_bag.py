@@ -23,10 +23,46 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
                      pad_id: Optional[int] = None) -> torch.Tensor:
     """Row gather ``table[clip(ids)]`` -> ``[*ids.shape, dim]``; with
     ``pad_id`` the rows of that id are zero."""
-    out = table[ids.long().clamp(0, table.shape[0] - 1)]
+    ids_c = ids.long().clamp(0, table.shape[0] - 1)
+    out = lookup_sharded(table, ids_c) \
+        if type(table).__name__ == "DTensor" else table[ids_c]
     if pad_id is not None:
         out = torch.where((ids == pad_id)[..., None], 0.0, out)
     return out
+
+
+def lookup_sharded(table, ids):
+    """``table[ids]`` for a DTensor table whose rows may be sharded (a
+    dry-run's row-sharded tables): each rank reads the ids that fall in
+    its block of rows, zeros elsewhere, and the result is a partial sum
+    over the mesh dims that shard the rows (vocab-parallel embedding).
+    The ids are gathered over those dims and keep their layout over the
+    others."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = table.device_mesh
+    rows = {i for i, p in enumerate(table.placements)
+            if isinstance(p, Shard) and p.dim == 0}
+    ids_pl = [Replicate() if i in rows or p.is_partial() else p
+              for i, p in enumerate(ids.placements)]
+    # the local table's gradient: its block of rows, a partial sum over
+    # the mesh dims whose ranks read other ids
+    tab = table.redistribute(mesh, [p if i in rows else Replicate()
+                                    for i, p in enumerate(table.placements)]
+                             ).to_local(grad_placements=[
+                                 Shard(0) if i in rows else
+                                 Partial() if isinstance(p, Shard) else
+                                 Replicate() for i, p in enumerate(ids_pl)])
+    idx = ids.redistribute(mesh, ids_pl).to_local()
+    # this rank's first row: its coordinate along the row-sharding dims
+    coord, first, n_loc = mesh.get_coordinate(), 0, tab.shape[0]
+    for i in sorted(rows):
+        first = first * mesh.shape[i] + coord[i]
+    idx = idx - first * n_loc
+    hit = (idx >= 0) & (idx < n_loc)
+    out = tab[idx.clamp(0, n_loc - 1)] * hit[..., None].to(tab.dtype)
+    return DTensor.from_local(out, mesh, [Partial() if i in rows else p
+                                          for i, p in enumerate(ids_pl)],
+                              run_check=False)
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,

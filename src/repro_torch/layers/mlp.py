@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import dense_init, swish
+from .common import NO_SHARD, ShardCtx, dense_init, swish
 
 
 class SwiGLU(nn.Module):
@@ -26,9 +26,11 @@ class SwiGLU(nn.Module):
         self.w_up = nn.Parameter(dense_init(gen, (d_model, d_ff), dtype))
         self.w_down = nn.Parameter(dense_init(gen, (d_ff, d_model), dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
         h = swish(x @ self.w_gate) * (x @ self.w_up)
-        return h @ self.w_down
+        h = ctx.shard(h, ctx.dp, None, ctx.tp)
+        return ctx.shard(h @ self.w_down, ctx.dp, None, None)
 
 
 class MLP(nn.Module):

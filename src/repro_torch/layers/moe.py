@@ -51,13 +51,14 @@ Shared experts (DeepSeek-MoE) run as a dense SwiGLU of width
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Iterator, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import dense_init, swish
+from .common import NO_SHARD, ShardCtx, _is_dtensor, dense_init, swish
 from .mlp import SwiGLU
 
 
@@ -148,6 +149,76 @@ def combine_plain(y: torch.Tensor, gates: torch.Tensor,
     return yk.sum(dim=1, dtype=torch.float32).to(y.dtype)
 
 
+def expert_products(xin: torch.Tensor, w_gate: torch.Tensor,
+                    w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """Each expert's SwiGLU on its slots: ``xin [E, cap, D]`` and the
+    weights ``[E, D, F]`` / ``[E, F, D]`` -> ``[E, cap, D]``."""
+    h = swish(torch.bmm(xin, w_gate)) * torch.bmm(xin, w_up)
+    return torch.bmm(h, w_down)
+
+
+class _AllGather(torch.autograd.Function):
+    """All-gather of local tensors along ``dim`` over mesh dim
+    ``mesh_dim``. Backward: the sum over the ranks of their gradients of
+    this rank's block (a reduce-scatter), or, with ``replicated`` (every
+    rank of the mesh dim then computes the same thing from the gathered
+    tensor), this rank's block of its own gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh, mesh_dim, replicated):
+        import torch.distributed._functional_collectives as funcol
+        ctx.args = (dim, mesh, mesh_dim, replicated)
+        return funcol.wait_tensor(
+            funcol.all_gather_tensor(x, dim, (mesh, mesh_dim)))
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed._functional_collectives as funcol
+        dim, mesh, mesh_dim, replicated = ctx.args
+        if replicated:
+            n, i = mesh.shape[mesh_dim], mesh.get_coordinate()[mesh_dim]
+            return g.chunk(n, dim=dim)[i].contiguous(), None, None, None, \
+                None
+        return funcol.wait_tensor(funcol.reduce_scatter_tensor(
+            g.contiguous(), "sum", dim, (mesh, mesh_dim))), None, None, \
+            None, None
+
+
+class _SumGradOver(torch.autograd.Function):
+    """Identity; the gradient is summed over the mesh dims ``dims``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        ctx.args = (mesh, dims)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed._functional_collectives as funcol
+        mesh, dims = ctx.args
+        for i in dims:
+            g = funcol.wait_tensor(funcol.all_reduce(g, "sum", (mesh, i)))
+        return g, None, None
+
+
+class _MeanOver(torch.autograd.Function):
+    """The mean of ``x`` over the ranks of the mesh dims ``dims`` (an
+    all-reduce). Backward: the result is used alike on every rank, so
+    each rank's share takes its gradient over the rank count."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        import torch.distributed._functional_collectives as funcol
+        ctx.n = math.prod(mesh.shape[i] for i in dims)
+        for i in dims:
+            x = funcol.wait_tensor(funcol.all_reduce(x, "sum", (mesh, i)))
+        return x / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
 class MoE(nn.Module):
     """``router [D, E]`` (f32), ``w_gate`` / ``w_up [E, D, F]``,
     ``w_down [E, F, D]`` and, with ``n_shared > 0``, ``shared`` (a
@@ -172,10 +243,12 @@ class MoE(nn.Module):
         self.shared = SwiGLU(d_model, d_ff * n_shared, dtype, gen) \
             if n_shared > 0 else None
 
-    def route(self, xf: torch.Tensor) -> Routing:
+    def route(self, xf: torch.Tensor, router=None) -> Routing:
         """Route the rows of ``xf`` [n_tok, D]: f32 logits, softmax, top-k
-        and the gates normalised over the k choices."""
-        probs = torch.softmax(xf.float() @ self.router, dim=-1)
+        and the gates normalised over the k choices. ``router`` stands in
+        for ``self.router`` (a rank's local copy of it on a mesh)."""
+        router = self.router if router is None else router
+        probs = torch.softmax(xf.float() @ router, dim=-1)
         gates, experts = torch.topk(probs, self.top_k, dim=-1)
         return Routing(gates / gates.sum(dim=-1, keepdim=True), experts,
                        probs)
@@ -229,8 +302,7 @@ class MoE(nn.Module):
         """Each expert's SwiGLU on its ``[cap, D]`` slots, as batched
         products -> ``[E * cap + 1, D]``, the last row zero (a dropped
         assignment's)."""
-        h = swish(torch.bmm(xin, self.w_gate)) * torch.bmm(xin, self.w_up)
-        y = torch.bmm(h, self.w_down)
+        y = expert_products(xin, self.w_gate, self.w_up, self.w_down)
         return torch.cat([y.flatten(0, 1), y.new_zeros((1, y.shape[2]))])
 
     def combine(self, y: torch.Tensor, gates: torch.Tensor,
@@ -241,8 +313,11 @@ class MoE(nn.Module):
         and reductions, no atomics)."""
         return _CombineRows.apply(y, gates, disp.rows, disp.slot_asg)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, ctx: ShardCtx = NO_SHARD
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [B, T, D] -> (out [B, T, D] in x's dtype, aux f32 scalar)."""
+        if ctx.mesh is not None and _is_dtensor(x):
+            return self._forward_sharded(x, ctx)
         b, t, d = x.shape
         xf = x.reshape(b * t, d)
         r = self.route(xf)
@@ -252,6 +327,88 @@ class MoE(nn.Module):
         if self.shared is not None:
             out = out + self.shared(x)
         return out, self.aux_loss(r)
+
+    def _forward_sharded(self, x: torch.Tensor, ctx: ShardCtx
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The layer over a mesh (DTensor x, parameters and result).
+
+        Each rank routes and dispatches its own tokens (its block of the
+        batch over the ``dp`` axes; the router gathered whole), so the
+        capacity is the local token count's, as in GShard's local
+        dispatch (the reference sorts the global token set under GSPMD).
+        The slots ``[E, cap, D]`` are then laid out as the reference's
+        constraint says: experts over ``tp``, replicated over ``dp``
+        (``E`` padded to a multiple of ``tp``, as GSPMD pads): each rank
+        runs its experts on every dp rank's slots, by explicit
+        all-gathers, with their weights gathered whole; the
+        rank's own slots come back for a local combine. The aux loss is
+        the mean over the ``dp`` ranks of each one's local loss."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate, \
+            Shard
+        mesh = ctx.mesh
+        b, t, d = x.shape
+        x = ctx.shard(x, ctx.dp, None, None)
+        dp_dims = [i for i, p in enumerate(x.placements)
+                   if isinstance(p, Shard)]
+        names = list(mesh.mesh_dim_names)
+        tp_dims = [names.index(a) for a in (
+            (ctx.tp,) if isinstance(ctx.tp, str) else ctx.tp or ())]
+        xl = x.to_local()
+        xf = xl.reshape(-1, d)
+        # the router's gradient from this rank's tokens: a partial sum over
+        # the dp dims (the tp ranks hold the same tokens)
+        router = self.router.redistribute(
+            mesh, [Replicate()] * mesh.ndim).to_local(grad_placements=[
+                Partial() if i in dp_dims else Replicate()
+                for i in range(mesh.ndim)])
+        r = self.route(xf, router)
+        disp = self.dispatch(r.experts)
+        # the reference's constraint: slots over tp (its experts, E padded
+        # to a multiple of tp as GSPMD pads), replicated over dp. This
+        # rank's experts take every dp rank's slots (all-gathers, whose
+        # backward reduce-scatters), with their weights gathered whole;
+        # all the experts' outputs come back over tp, and the rank keeps
+        # its own slots
+        e, cap = disp.slot_tok.shape
+        coord = mesh.get_coordinate()
+        n_tp = math.prod(mesh.shape[i] for i in tp_dims)
+        e_loc = -(-e // n_tp)
+        t_idx = 0
+        for i in tp_dims:
+            t_idx = t_idx * mesh.shape[i] + coord[i]
+        own = slice(min(t_idx * e_loc, e), min((t_idx + 1) * e_loc, e))
+        # this rank's experts see only their slots: their part of the
+        # tokens' gradient is summed over tp (the router's part is whole)
+        xs = self.gather(_SumGradOver.apply(xf, mesh, tp_dims), disp)[own]
+        for i in reversed(dp_dims):            # minor dims first
+            xs = _AllGather.apply(xs, 1, mesh, i, False)
+        # the weights' gradients: this rank's experts (a partial sum over
+        # tp) on its own slots (over dp)
+        wg, wu, wd = (w.redistribute(mesh, [Replicate()] * mesh.ndim)
+                      .to_local(grad_placements=[Partial()] * mesh.ndim)
+                      [own] for w in (self.w_gate, self.w_up, self.w_down))
+        y = expert_products(xs, wg, wu, wd)
+        if y.shape[0] < e_loc:
+            y = torch.cat([y, y.new_zeros((e_loc - y.shape[0],)
+                                          + y.shape[1:])])
+        for i in reversed(tp_dims):
+            y = _AllGather.apply(y, 0, mesh, i, True)
+        start = 0
+        for i in dp_dims:
+            start = start * mesh.shape[i] + coord[i]
+        y = y[:e, start * cap:(start + 1) * cap]
+        y = torch.cat([y.flatten(0, 1), y.new_zeros((1, d))])
+        out = self.combine(y, r.gates, disp).view(xl.shape)
+        out = DTensor.from_local(out, mesh, x.placements, run_check=False)
+        if self.shared is not None:
+            out = out + self.shared(x, ctx)
+        # the mean over the dp ranks, whole on every rank (a partial
+        # placement would meet the cross entropy's, whose kind of partial
+        # differs between torch versions)
+        aux = DTensor.from_local(
+            _MeanOver.apply(self.aux_loss(r), mesh, dp_dims), mesh,
+            [Replicate()] * mesh.ndim, run_check=False)
+        return ctx.shard(out, ctx.dp, None, None), aux
 
 
 @contextlib.contextmanager

@@ -46,7 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.engine_torch import resolve_device
-from ..layers.common import dense_init, embed_init, layernorm
+from ..layers.common import NO_SHARD, ShardCtx, dense_init, embed_init, \
+    layernorm
 from ..layers.embedding_bag import embedding_bag_fixed, embedding_lookup
 from ..layers.mlp import MLP
 
@@ -149,36 +150,41 @@ def init_bst_params(cfg: BSTConfig, seed: int = 0, device=None) -> BST:
     return BST(cfg, gen)
 
 
-def user_tower(model: BST, hist: torch.Tensor, user_feats: torch.Tensor
+def user_tower(model: BST, hist: torch.Tensor, user_feats: torch.Tensor,
+               ctx: ShardCtx = NO_SHARD
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """hist [B, L] item ids; user_feats [B, W] multi-hot (pad 0) ->
     (the history's rows [B, L, d], the profile bag [B, d])."""
-    e_hist = embedding_lookup(model.item_emb, hist)
+    e_hist = ctx.shard(embedding_lookup(model.item_emb, hist), ctx.dp,
+                       None, None)
     e_user = embedding_bag_fixed(model.user_emb, user_feats, mode="mean",
                                  pad_id=0)
     return e_hist, e_user
 
 
 def bst_scores(model: BST, hist: torch.Tensor, target: torch.Tensor,
-               user_feats: torch.Tensor) -> torch.Tensor:
+               user_feats: torch.Tensor,
+               ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     """CTR logits [B]. hist [B, L]; target [B]; user_feats [B, W]."""
     b = hist.shape[0]
-    e_hist, e_user = user_tower(model, hist, user_feats)
+    e_hist, e_user = user_tower(model, hist, user_feats, ctx)
     e_tgt = embedding_lookup(model.item_emb, target)[:, None, :]
     seq = torch.cat([e_hist, e_tgt], dim=1) + model.pos_emb[None]
     for block in model.blocks:
         seq = block(seq)
-    feats = torch.cat([seq.reshape(b, -1), e_user], dim=-1)
+    feats = ctx.shard(torch.cat([seq.reshape(b, -1), e_user], dim=-1),
+                      ctx.dp, None)
     return model.mlp(feats)[..., 0]
 
 
-def bst_loss(model: BST, batch: Mapping[str, torch.Tensor]
+def bst_loss(model: BST, batch: Mapping[str, torch.Tensor],
+             ctx: ShardCtx = NO_SHARD
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean binary cross entropy of the logits against ``batch["label"]``
     in f32, in the stable form ``max(z, 0) - z y + log1p(exp(-|z|))``, and
     the accuracy of ``z > 0``: ``(loss, {"loss", "acc"})``."""
     logits = bst_scores(model, batch["hist"], batch["target"],
-                        batch["user_feats"])
+                        batch["user_feats"], ctx)
     labels = batch["label"].float()
     lf = logits.float()
     loss = (lf.clamp(min=0) - lf * labels
@@ -187,27 +193,31 @@ def bst_loss(model: BST, batch: Mapping[str, torch.Tensor]
     return loss, {"loss": loss, "acc": acc}
 
 
-def bst_serve(model: BST, batch: Mapping[str, torch.Tensor]
-              ) -> torch.Tensor:
+def bst_serve(model: BST, batch: Mapping[str, torch.Tensor],
+              ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     """Online or bulk scoring: the sigmoid CTR of each (user, target)
     row, [B]."""
     return torch.sigmoid(bst_scores(model, batch["hist"], batch["target"],
-                                    batch["user_feats"]))
+                                    batch["user_feats"], ctx))
 
 
 def bst_retrieval(model: BST, hist: torch.Tensor, user_feats: torch.Tensor,
-                  cand_ids: torch.Tensor, chunk: Optional[int] = None
-                  ) -> torch.Tensor:
+                  cand_ids: torch.Tensor, chunk: Optional[int] = None,
+                  ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     """One user (hist [1, L], user_feats [1, W]) against ``cand_ids`` [C]
     -> logits [C]. Each candidate is a row of the encoder's batch: the
     history (with its positions) broadcast beside the candidate at position
     L, through the first block, then the MLP with the user's bag, as the
     reference evaluates it (BST has one block). ``chunk``: candidates per
     pass (all at once when None); each row's score depends on its own
-    candidate only."""
+    candidate only. Under ``ctx`` the candidates lie over every mesh
+    axis."""
     cfg = model.cfg
     L, d = cfg.seq_len, cfg.embed_dim
-    e_hist, e_user = user_tower(model, hist, user_feats)
+    e_hist, e_user = user_tower(model, hist, user_feats, ctx)
+    cand_axis = tuple(a for ax in (ctx.dp, ctx.tp) if ax is not None
+                      for a in ((ax,) if isinstance(ax, str) else ax)) \
+        or None
     hist_tokens = (e_hist + model.pos_emb[None, :L])[0]      # [L, d]
     block = model.blocks[0]
     n = cand_ids.shape[0]
@@ -216,8 +226,12 @@ def bst_retrieval(model: BST, hist: torch.Tensor, user_feats: torch.Tensor,
     for c0 in range(0, n, max(step, 1)):
         ids = cand_ids[c0:c0 + step]
         c = ids.shape[0]
-        e_cand = embedding_lookup(model.item_emb, ids) + model.pos_emb[L]
-        seqs = torch.cat([hist_tokens.expand(c, L, d), e_cand[:, None]],
+        e_cand = ctx.shard(embedding_lookup(model.item_emb, ids)
+                           + model.pos_emb[L], cand_axis, None)
+        # (under a mesh the broadcast history takes the candidates' layout,
+        # a local slice, rather than the candidates being gathered)
+        seqs = torch.cat([ctx.shard(hist_tokens.expand(c, L, d), cand_axis,
+                                    None, None), e_cand[:, None]],
                          dim=1)                              # [c, L+1, d]
         flat = block(seqs).reshape(c, -1)
         feats = torch.cat([flat, e_user.expand(c, d)], dim=-1)

@@ -58,7 +58,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.engine_torch import resolve_device
-from ..layers.common import layernorm
+from ..layers.common import NO_SHARD, ShardCtx, layernorm
 from ..layers.mlp import MLP
 
 
@@ -119,6 +119,15 @@ LAYER_NORMS = {"gin": ("ln",), "mgn": ("edge_ln", "node_ln")}
 # --------------------------------------------------------------------------
 
 
+def _host_count(x: torch.Tensor, traced: int) -> int:
+    """``int(x)`` read back to the host. A fake tensor (a dry-run's
+    trace, ``launch/dryrun.py``) has no value: it reads as ``traced``,
+    the count when every edge is valid, as in rank 0's shard of the
+    reference's padded edge arrays."""
+    from torch._subclasses.fake_tensor import is_fake
+    return traced if is_fake(x) else int(x)
+
+
 class Segments:
     """The segments of an index array over ``n`` nodes, built once and
     read by every sum, gather and extremum keyed by it.
@@ -139,7 +148,7 @@ class Segments:
             keys, self.order = torch.sort(self.idx, stable=True)
         self.ptr = torch.searchsorted(
             keys, torch.arange(n + 1, device=keys.device))
-        self.n_valid = int(self.ptr[n])
+        self.n_valid = _host_count(self.ptr[n], self.idx.shape[0])
         # gathers read row min(idx, n - 1) and zero the padded entries
         self.pad = None if self.n_valid == self.idx.shape[0] else \
             (self.idx == n)[:, None]
@@ -267,7 +276,8 @@ def graph_index(edge_src: torch.Tensor, edge_dst: torch.Tensor,
     Build it once a batch: every layer, its backward and the pooling
     read it."""
     dst, keep = torch.sort(edge_dst.long().clamp(0, n), stable=True)
-    m = int(torch.searchsorted(dst, torch.tensor([n], device=dst.device)))
+    m = _host_count(torch.searchsorted(
+        dst, torch.tensor([n], device=dst.device)), dst.shape[0])
     keep, dst = keep[:m], dst[:m]
     src = edge_src.long().clamp(0, n).index_select(0, keep)
     return GraphIndex(n=n, keep=keep, src=Segments(src, n),
@@ -389,19 +399,23 @@ def gnn_decay_mask(params: Mapping[str, torch.Tensor]) -> Dict[str, bool]:
 # --------------------------------------------------------------------------
 
 
-def _gin_layer(lp: GNNLayer, h, agg: Aggregation):
-    s = agg.sum(agg.at_src(agg.nodes(h)))
+def _gin_layer(lp: GNNLayer, h, agg: Aggregation,
+               ctx: ShardCtx = NO_SHARD):
+    s = agg.sum(ctx.shard(agg.at_src(agg.nodes(h)), ctx.dp, None))
+    s = ctx.shard(s, None, None)
     out = lp.mlp((1.0 + lp.eps) * h + s, final_act=True)
     # GIN-TU uses BatchNorm between layers; LayerNorm is the reference's
     # distribution-friendly substitute (no cross-device batch stats)
     return lp.ln(out)
 
 
-def _pna_layer(lp: GNNLayer, h, agg: Aggregation, delta: float = 2.0):
+def _pna_layer(lp: GNNLayer, h, agg: Aggregation, ctx: ShardCtx = NO_SHARD,
+               delta: float = 2.0):
     em, dt, deg = agg.ix.emask[:, None], h.dtype, agg.deg
     hp = agg.nodes(h)
     m = torch.where(em, lp.pre(torch.cat([agg.at_src(hp), agg.at_dst(hp)],
                                          dim=-1)), 0.0)
+    m = ctx.shard(m, ctx.dp, None)
     # the moments and the degree arithmetic are at least f32 and each
     # aggregate is cast back to the state's dtype, as the reference's
     # distributed loss casts it (bf16 moments would make sq - mean^2 of
@@ -424,25 +438,28 @@ def _pna_layer(lp: GNNLayer, h, agg: Aggregation, delta: float = 2.0):
     return h + lp.post(torch.cat([h] + scaled, dim=-1))
 
 
-def _egnn_layer(lp: GNNLayer, h, x, agg: Aggregation):
+def _egnn_layer(lp: GNNLayer, h, x, agg: Aggregation,
+                ctx: ShardCtx = NO_SHARD):
     em = agg.ix.emask[:, None]
     hp, xp = agg.nodes(h), agg.nodes(x)
     diff = agg.at_dst(xp) - agg.at_src(xp)
     r2 = torch.sum(diff * diff, dim=-1, keepdim=True)
     m = lp.phi_e(torch.cat([agg.at_dst(hp), agg.at_src(hp), r2], dim=-1),
                  final_act=True, act=F.silu)
-    m = torch.where(em, m, 0.0)
+    m = ctx.shard(torch.where(em, m, 0.0), ctx.dp, None)
     w = lp.phi_x(m, act=F.silu)                                  # [E, 1]
     x_new = (x + agg.sum(diff * w) / agg.deg).to(x.dtype)
     h_new = h + lp.phi_h(torch.cat([h, agg.sum(m)], dim=-1), act=F.silu)
     return h_new, x_new
 
 
-def _mgn_layer(lp: GNNLayer, h, e_feat, agg: Aggregation):
+def _mgn_layer(lp: GNNLayer, h, e_feat, agg: Aggregation,
+               ctx: ShardCtx = NO_SHARD):
     hp = agg.nodes(h)
     e_new = lp.edge_ln(lp.edge_mlp(torch.cat(
         [e_feat, agg.at_src(hp), agg.at_dst(hp)], dim=-1))) + e_feat
-    e_new = torch.where(agg.ix.emask[:, None], e_new, 0.0)
+    e_new = ctx.shard(torch.where(agg.ix.emask[:, None], e_new, 0.0), ctx.dp,
+                      None)
     h_new = lp.node_ln(lp.node_mlp(torch.cat([h, agg.sum(e_new)], dim=-1))) \
         + h
     return h_new, e_new
@@ -458,19 +475,26 @@ _BODIES = {"gin": _gin_layer, "pna": _pna_layer, "egnn": _egnn_layer,
 
 
 def node_states(model: GNN, batch: Mapping[str, torch.Tensor],
-                agg: Aggregation) -> torch.Tensor:
+                agg: Aggregation, ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     """The encoder and every layer: the node states ``[N, d]`` the
     decoder reads (a block of them under a grid's ``agg``). With
-    ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``."""
+    ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``. Node
+    states are replicated under ``ctx``, edge tensors laid out over its
+    ``dp`` axes (the port's node partition is ``models/gnn_dist.py``)."""
     cfg, ix = model.cfg, agg.ix
     h = model.enc(batch["x"].to(cfg.dtype), final_act=True)
-    h = h * batch["node_mask"][:, None].to(h.dtype)
+    h = ctx.shard(h * batch["node_mask"][:, None].to(h.dtype), None, None)
     body = _BODIES[cfg.kind]
 
     def run(lp, *carry):
         if cfg.remat:
-            return checkpoint(body, lp, *carry, agg, use_reentrant=False)
-        return body(lp, *carry, agg)
+            out = checkpoint(body, lp, *carry, agg, ctx,
+                             use_reentrant=False)
+        else:
+            out = body(lp, *carry, agg, ctx)
+        if isinstance(out, tuple):
+            return (ctx.shard(out[0], None, None),) + out[1:]
+        return ctx.shard(out, None, None)
 
     if cfg.kind in ("egnn", "mgn"):
         if cfg.kind == "egnn":
@@ -488,15 +512,17 @@ def node_states(model: GNN, batch: Mapping[str, torch.Tensor],
 
 
 def gnn_forward(model: GNN, batch: Mapping[str, torch.Tensor],
-                index: Optional[GraphIndex] = None) -> torch.Tensor:
+                index: Optional[GraphIndex] = None,
+                ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     """Node outputs ``[N, n_out]`` (``graph_class``: ``[G, n_out]``, sum
     pooling by ``graph_ids`` over ``G = len(loss_mask)`` graphs).
     ``index``: the batch's :func:`graph_index`, built here when None (a
     caller whose batch repeats every step builds it once)."""
     n = batch["x"].shape[0]
-    ix = index if index is not None else \
-        graph_index(batch["edge_src"], batch["edge_dst"], n)
-    h = node_states(model, batch, Aggregation(ix))
+    ix = index if index is not None else graph_index(
+        ctx.shard(batch["edge_src"], ctx.dp),
+        ctx.shard(batch["edge_dst"], ctx.dp), n)
+    h = node_states(model, batch, Aggregation(ix), ctx)
     if model.cfg.task == "graph_class":
         ng = batch["loss_mask"].shape[0]
         h = scatter_sum(h, batch["graph_ids"], ng)
@@ -517,12 +543,12 @@ def masked_loss_sum(out: torch.Tensor, batch: Mapping[str, torch.Tensor],
 
 
 def gnn_loss(model: GNN, batch: Mapping[str, torch.Tensor],
-             index: Optional[GraphIndex] = None
+             index: Optional[GraphIndex] = None, ctx: ShardCtx = NO_SHARD
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Masked f32 cross entropy and accuracy (``node_class``,
     ``graph_class``), or masked MSE (``node_reg``): ``(loss, {"loss",
     "acc"})`` / ``(loss, {"loss"})``."""
-    out = gnn_forward(model, batch, index)
+    out = gnn_forward(model, batch, index, ctx)
     mask = batch["loss_mask"].float()
     den = mask.sum().clamp(min=1.0)
     loss = masked_loss_sum(out, batch, model.cfg.task) / den

@@ -58,8 +58,9 @@ from torch.utils.checkpoint import checkpoint
 from ..core.engine_torch import resolve_device
 from ..layers.attention import (GQAAttention, MLAAttention, init_gqa_cache,
                                 init_mla_cache)
-from ..layers.common import (RMSNorm, dense_init, embed_init,
-                             softmax_cross_entropy)
+from ..layers.common import (NO_SHARD, RMSNorm, ShardCtx, dense_init,
+                             embed_init, softmax_cross_entropy)
+from ..layers.embedding_bag import lookup_sharded
 from ..layers.mlp import SwiGLU
 from ..layers.moe import MoE
 
@@ -174,19 +175,19 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[Dict] = None, attn_impl: str = "auto",
-                norm_impl: str = "auto"
+                norm_impl: str = "auto", ctx: ShardCtx = NO_SHARD
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """-> (x [B, T, D], the block's aux loss; None for a dense FFN, so
         a dense block launches nothing for it)."""
         h, _ = self.attn(self.norm1(x, impl=norm_impl), positions,
                          cache=cache, attn_impl=attn_impl,
-                         norm_impl=norm_impl)
+                         norm_impl=norm_impl, ctx=ctx)
         x = x + h
         hin = self.norm2(x, impl=norm_impl)
         if self.moe:
-            h, aux = self.ffn(hin)
+            h, aux = self.ffn(hin, ctx)
             return x + h, aux
-        return x + self.ffn(hin), None
+        return x + self.ffn(hin, ctx), None
 
 
 class Transformer(nn.Module):
@@ -212,7 +213,7 @@ class Transformer(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 caches: Optional[List[Dict]] = None,
                 attn_impl: str = "auto", norm_impl: str = "auto",
-                last_only: bool = False
+                last_only: bool = False, ctx: ShardCtx = NO_SHARD
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """tokens [B, T] -> (logits [B, T, V], aux: the MoE layers' summed
         load-balance loss, f32, or None for a dense model). ``last_only``
@@ -221,24 +222,27 @@ class Transformer(nn.Module):
         b, t = tokens.shape
         if positions is None:
             positions = torch.arange(t, device=tokens.device).expand(b, t)
-        x = self.embed[tokens].to(self.cfg.dtype)
+        emb = self.embed[tokens] if ctx.mesh is None else \
+            lookup_sharded(self.embed, tokens.long())
+        x = ctx.shard(emb.to(self.cfg.dtype), ctx.dp, None, None)
         remat = self.cfg.remat and caches is None and torch.is_grad_enabled()
         aux = None
         for i, layer in enumerate(self.layers):
             if remat:
                 x, a = checkpoint(layer, x, positions, None, attn_impl,
-                                  norm_impl, use_reentrant=False)
+                                  norm_impl, ctx, use_reentrant=False)
             else:
                 x, a = layer(x, positions,
                              None if caches is None else caches[i],
-                             attn_impl=attn_impl, norm_impl=norm_impl)
+                             attn_impl=attn_impl, norm_impl=norm_impl,
+                             ctx=ctx)
             if a is not None:
                 aux = a if aux is None else aux + a
         if last_only:
             x = x[:, -1:].contiguous()          # the norm kernel's layout
         x = self.final_norm(x, impl=norm_impl)
         head = self.embed.T if self.lm_head is None else self.lm_head
-        return x @ head, aux
+        return ctx.shard(x @ head, ctx.dp, None, ctx.tp), aux
 
 
 def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Transformer:
@@ -253,20 +257,21 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Transformer:
 def forward(model: Transformer, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             caches: Optional[List[Dict]] = None, attn_impl: str = "auto",
-            norm_impl: str = "auto"
+            norm_impl: str = "auto", ctx: ShardCtx = NO_SHARD
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[List[Dict]]]:
     """tokens [B, T] -> (logits [B, T, V], aux_loss, caches), as the
     reference; aux (f32) is the MoE layers' summed load-balance loss, 0
     for a dense model."""
     logits, aux = model(tokens, positions, caches, attn_impl=attn_impl,
-                        norm_impl=norm_impl)
+                        norm_impl=norm_impl, ctx=ctx)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     return logits, aux, caches
 
 
 def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
-            attn_impl: str = "auto", norm_impl: str = "auto"
+            attn_impl: str = "auto", norm_impl: str = "auto",
+            ctx: ShardCtx = NO_SHARD
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training loss of a batch ``{tokens [B, T], labels [B, T]}`` on the
     model's device: ``(ce + aux, {"ce": ce, "aux": aux})`` with ``ce``
@@ -274,7 +279,7 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
     ``loss_fn``. Call it with autograd on (not under ``inference_mode``):
     the kernels then run with their backward kernels."""
     logits, aux, _ = forward(model, batch["tokens"], attn_impl=attn_impl,
-                             norm_impl=norm_impl)
+                             norm_impl=norm_impl, ctx=ctx)
     ce = softmax_cross_entropy(logits, batch["labels"])
     return ce + aux, {"ce": ce, "aux": aux}
 
@@ -307,22 +312,23 @@ def init_caches(cfg: LMConfig, b: int, s_max: int, device=None
 @torch.inference_mode()
 def decode_step(model: Transformer, caches: List[Dict],
                 tokens: torch.Tensor, position: int,
-                norm_impl: str = "auto"
+                norm_impl: str = "auto", ctx: ShardCtx = NO_SHARD
                 ) -> Tuple[torch.Tensor, List[Dict]]:
     """One-token decode: tokens [B, 1], ``position`` feeds RoPE (the cache
     length). Returns (logits [B, V], the caches, written in place)."""
     b = tokens.shape[0]
     positions = torch.full((b, 1), position, dtype=torch.long,
                            device=tokens.device)
-    logits, _ = model(tokens, positions, caches, norm_impl=norm_impl)
+    logits, _ = model(tokens, positions, caches, norm_impl=norm_impl,
+                      ctx=ctx)
     return logits[:, -1], caches
 
 
 @torch.inference_mode()
 def prefill_step(model: Transformer, tokens: torch.Tensor,
-                 attn_impl: str = "auto", norm_impl: str = "auto"
-                 ) -> torch.Tensor:
+                 attn_impl: str = "auto", norm_impl: str = "auto",
+                 ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     """Prefill forward: tokens [B, T] -> last-position logits [B, V] (cache
     population elided, as in the reference's step)."""
     return model(tokens, attn_impl=attn_impl, norm_impl=norm_impl,
-                 last_only=True)[0][:, -1]
+                 last_only=True, ctx=ctx)[0][:, -1]

@@ -1076,3 +1076,58 @@ def test_sbenu_dist_over_nccl_equals_gloo_on_the_cpu(nccl_world, card,
         for key in ("per_shard_counts", "per_shard_level_sizes"):
             np.testing.assert_array_equal(g.extras[key], c.extras[key])
     assert all(be.dstore.rebuilds == 1 for be in backends.values())
+
+
+@pytest.mark.cuda
+def test_kernel_ops_dispatcher_equals_ctypes_and_fake(card):
+    """The dispatcher ops (``kernels/library.py``) launch the same kernels
+    as the ctypes launches they wrap (bit-equal), and each fake
+    implementation gives the launched output's shape, dtype and strides:
+    flash attention on strided ``[B, H, T, d]`` views (its output in q's
+    layout), RMSNorm and the intersects."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gather_intersect as gi
+    from repro_torch.kernels import library
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import sorted_intersect as si
+    rng = np.random.default_rng(0)
+    q = torch.randn((2, 9, 4, 32), device=card).bfloat16().transpose(1, 2)
+    k = torch.randn((2, 9, 2, 32), device=card).bfloat16().transpose(1, 2)
+    s = 32 ** -0.5
+    out, lse = fa.launch_forward(q, k, k, True, s, True)
+    x = torch.randn((5, 896), device=card).bfloat16()
+    g = torch.randn((896,), device=card).bfloat16()
+    n = 64
+    a = torch.from_numpy(_rand_padded_sets(rng, 8, 16, n)).to(card)
+    adj = torch.from_numpy(_rand_adjacency(rng, n, 16)).to(card)
+    ids = torch.from_numpy(rng.integers(0, n, 8).astype(np.int32)).to(card)
+    cases = {
+        "flash_attention": ((q, k, k, True, s),
+                            lambda: fa.launch_forward(q, k, k, True, s,
+                                                      False)[0]),
+        "flash_attention_lse": ((q, k, k, True, s),
+                                lambda: fa.launch_forward(q, k, k, True, s,
+                                                          True)),
+        "flash_attention_bwd": ((q, k, k, out, lse, out, True, s),
+                                lambda: fa.launch_backward(q, k, k, out, lse,
+                                                           out, True, s)),
+        "rmsnorm": ((x, g, 1e-6), lambda: rn.launch_forward(x, g, 1e-6)),
+        "rmsnorm_bwd": ((x, g, x, 1e-6),
+                        lambda: rn.launch_backward(x, g, x, 1e-6)),
+        "sorted_intersect": ((a, a, n), lambda: si.launch(a, a, n)),
+        "gather_intersect": ((ids, a, adj, n),
+                             lambda: gi.launch(ids, a, adj, n)),
+    }
+    for name, (args, launch) in cases.items():
+        got = library.op(name)(*args)
+        want = launch()
+        with FakeTensorMode(allow_non_fake_inputs=True) as fm:
+            fake = library.op(name)(*[fm.from_tensor(t) if isinstance(
+                t, torch.Tensor) else t for t in args])
+        got, want, fake = (r if isinstance(r, tuple) else (r,)
+                           for r in (got, want, fake))
+        for gt, wt, ft in zip(got, want, fake):
+            assert torch.equal(gt, wt), name
+            assert (ft.shape, ft.dtype, ft.stride()) == \
+                (gt.shape, gt.dtype, gt.stride()), name

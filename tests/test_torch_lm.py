@@ -279,16 +279,20 @@ def test_configs_equal_the_reference(arch):
 
 def test_unported_archs_and_configs_raise():
     """Every assigned architecture is ported: BST (a recsys config) and the
-    four GNNs too; ``benu``, which has no model config, raises. The MoE
-    and MLA models train with no guard left: the training CLI runs them,
-    at a cut depth with ``--layers``."""
+    four GNNs too, and ``benu`` (the dry-run's BENU cells) returns its
+    spec with the reference's shapes. The MoE and MLA models train with no
+    guard left: the training CLI runs them, at a cut depth with
+    ``--layers``."""
     gnns = ["gin-tu", "pna", "egnn", "meshgraphnet"]
-    assert sorted(list_archs()) == sorted(ARCHS + ["bst"] + gnns)
+    assert sorted(list_archs()) == sorted(ARCHS + ["bst"] + gnns + ["benu"])
     assert get_config("bst").family == "recsys"
     for arch in gnns:
         assert get_config(arch).family == "gnn"
-    with pytest.raises(NotImplementedError, match="no model config"):
-        get_config("benu")
+    from repro.configs import get_config as jget_config
+    benu, jbenu = get_config("benu"), jget_config("benu")
+    assert benu.family == "benu"
+    assert {k: (s.kind, s.dims) for k, s in benu.shapes.items()} == \
+        {k: (s.kind, s.dims) for k, s in jbenu.shapes.items()}
     assert not hasattr(ttf, "check_trainable")
     from repro_torch.launch.train import main
     for arch in ("granite-moe-3b-a800m", "deepseek-v2-lite-16b"):
