@@ -151,6 +151,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    equal to a CPU run's. The GNNs run no kernel of the port (their
    segment sums are plain PyTorch, as they are plain jnp in the JAX
    package);
+13b. the other examples on the card, as a user runs them
+   (``phase_examples``): ``quickstart_torch.py`` (the match count equal
+   to the brute force), ``continuous_enum_torch.py`` (each step's ΔR⁺
+   and ΔR⁻ equal to the snapshot diff and to the interpreter) and
+   ``train_lm_torch.py`` (the loss falling, a rerun resuming after the
+   last checkpoint);
 14. the dry-run tooling (``phase_dryrun``): each kernel op at its phase-2
    shape, its fake implementation's shape, dtype and strides equal to the
    launched kernel's, a launch through the dispatcher bit-equal to the
@@ -164,9 +170,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ratio to 6·N·tokens plus the causal attention, the TFLOP/s of a step
    timed outside the counter), and one rmsnorm call's bytes and one flash
    call's flops as counted, equal to ``kernels/cost.py``'s; and
-   ``launch/dryrun.py`` on ``DRYRUN_RUNS`` (three subprocesses side by
+   ``launch/dryrun.py`` on ``DRYRUN_RUNS`` (five subprocesses side by
    side, so that their fake worlds never meet this process's NCCL world:
-   the cells over the 16 x 16 mesh and train_4k over 2 x 16 x 16), fake
+   the cells over the 16 x 16 mesh, and qwen2-0.5b's and granite's
+   train_4k, each alone, over 16 x 16 and 2 x 16 x 16), fake
    tensors on the card's device, every cell ``OK`` with its per-device
    GiB, the three roofline terms and the dominant one printed. They run
    beside phase 4's graph generation (host set-up, not a measurement of
@@ -344,18 +351,27 @@ GNN_STEPS, GNN_MB_STEPS, GNN_MB_DEGREE = 6, 4, 8
 GNN_RESTART_STEPS, GNN_RESTART_EVERY = 6, 3
 GNN_CLI_STEPS, GNN_OGB_STEPS = 20, 3
 GNN_LR, GNN_TOL = 1e-4, 1e-4
+DRYRUN_GRANITE_LAYERS = 4
 # phase 14: the dry-run's cells, traced on fake tensors by subprocesses
-# side by side beside phase 4's graph generation (tag, cells, multi-pod):
-# train_4k alone takes most of a subprocess's time, so it runs in one of
-# its own; their time limit
+# side by side beside phase 4's graph generation (tag, cells, multi-pod,
+# layers or None for full depth): a train_4k cell takes most of a
+# subprocess's time, so each runs in one of its own; granite's at a cut
+# depth (its full 32 layers trace in 58-105 s, past the generation); their
+# time limit
 DRYRUN_RUNS = (
-    ("pod", ("qwen2-0.5b:train_4k",), False),
+    ("pod", ("qwen2-0.5b:train_4k",), False, None),
+    ("pod", ("granite-moe-3b-a800m:train_4k",), False,
+     DRYRUN_GRANITE_LAYERS),
     ("pod", ("qwen2-0.5b:decode_32k", "qwen2-0.5b:long_500k",
              "granite-moe-3b-a800m:prefill_32k", "bst:retrieval_cand",
              "gin-tu:ogb_products", "benu:enum_128m",
-             "benu:sbenu_delta_16m"), False),
-    ("multipod", ("qwen2-0.5b:train_4k",), True))
+             "benu:sbenu_delta_16m"), False, None),
+    ("multipod", ("qwen2-0.5b:train_4k",), True, None),
+    ("multipod", ("granite-moe-3b-a800m:train_4k",), True,
+     DRYRUN_GRANITE_LAYERS))
 DRYRUN_TIMEOUT_S, HOST_CALLS = 300, 300
+# phase 13b: train_lm_torch's steps and checkpoint interval
+EXAMPLE_LM_STEPS, EXAMPLE_LM_EVERY = 100, 50
 
 
 @contextlib.contextmanager
@@ -2404,9 +2420,9 @@ def phase_moe_train_lm(dev, arch: str) -> dict:
     flips logged); then ``MOE_TRAIN_STEPS`` AdamW steps at
     ``MOE_RESTART_LAYERS`` layers with a checkpoint and a failed-and-
     resumed run that must be bit-exact, exact launches; then
-    ``MOE_TIMED_STEPS`` AdamW steps at full depth from seed 0 (tok/s; the
-    loss must fall over them), peak memory and a profiled step. Returns
-    the main path's launches."""
+    ``MOE_TIMED_STEPS`` AdamW steps at ``MOE_TRAIN_LAYERS`` layers from
+    seed 0 (tok/s; the loss must fall over them), peak memory and a
+    profiled step. Returns the main path's launches."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipelines import LMStream
@@ -2525,8 +2541,8 @@ def phase_moe_train_lm(dev, arch: str) -> dict:
     del state
     torch.cuda.empty_cache()
 
-    # -- at full depth from seed 0: timed AdamW steps (the loss must fall
-    # over them), peak memory, a profiled step
+    # -- at MOE_TRAIN_LAYERS layers from seed 0: timed AdamW steps (the
+    # loss must fall over them), peak memory, a profiled step
     from repro_torch.train.optimizer import adamw_init
     model = init_params(cfg, seed=SEED, device=dev)
     opt = adamw_init(dict(model.named_parameters()))
@@ -3745,6 +3761,61 @@ def phase_gnn(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 13b: the examples
+# ---------------------------------------------------------------------------
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+    path = ROOT / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples() -> None:
+    """``examples/quickstart_torch.py`` (its match count equal to its own
+    brute force), ``continuous_enum_torch.py`` (each step's ΔR⁺/ΔR⁻ on
+    the card equal to the snapshot diff and to the interpreter) and
+    ``train_lm_torch.py`` (``EXAMPLE_LM_STEPS`` steps checkpointed every
+    ``EXAMPLE_LM_EVERY``, the loss falling, then a rerun in the same
+    directory that resumes after the last checkpoint), each on the card
+    as a user runs it. Each example raises when its check fails."""
+    import shutil
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    count = load_example("quickstart_torch").main([])
+    log(f"  examples/quickstart_torch.py: {count} matches, equal to the "
+        f"brute force ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    rows = load_example("continuous_enum_torch").main([])
+    log(f"  examples/continuous_enum_torch.py: (dR+, dR-, DBQ) by step "
+        f"{rows}, each equal to the snapshot diff "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    lm = load_example("train_lm_torch")
+    ckpt = ROOT / "build" / "train_lm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args = ["--ckpt-dir", str(ckpt), "--ckpt-every", str(EXAMPLE_LM_EVERY)]
+    first = lm.main([str(EXAMPLE_LM_STEPS)] + args)
+    again = lm.main([str(EXAMPLE_LM_STEPS + EXAMPLE_LM_EVERY)] + args)
+    log(f"  examples/train_lm_torch.py: loss {first['loss'][0]:.4f} -> "
+        f"{first['loss'][-1]:.4f} over {EXAMPLE_LM_STEPS} steps; the rerun "
+        f"resumed at step {again['step'][0] - 1} ({again['loss'][-1]:.4f}"
+        f" at step {again['step'][-1]}); {time.perf_counter() - t0:.1f} s")
+    if not first["loss"][-1] < first["loss"][0]:
+        raise RuntimeError("train_lm_torch: the loss did not fall")
+    if again["step"][0] != EXAMPLE_LM_STEPS + 1:
+        raise RuntimeError(f"train_lm_torch: the rerun started at step "
+                           f"{again['step'][0]}, not after the checkpoint "
+                           f"of step {EXAMPLE_LM_STEPS}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"  phase 13b: {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # Phase 14: the dry-run tooling
 # ---------------------------------------------------------------------------
 
@@ -3755,10 +3826,12 @@ def start_dryrun(out: Path) -> list:
     tensors on the card's device. Returns ``[(tag, Popen)]``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = []
-    for tag, cells, multi_pod in DRYRUN_RUNS:
+    for tag, cells, multi_pod, layers in DRYRUN_RUNS:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
                "cuda", "--out", str(out),
-               *(["--multi-pod"] if multi_pod else []), "--cells", *cells]
+               *(["--multi-pod"] if multi_pod else []),
+               *(["--layers", str(layers)] if layers else []),
+               "--cells", *cells]
         procs.append((tag, subprocess.Popen(
             cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
@@ -3807,8 +3880,10 @@ def report_dryrun(done: list, out: Path) -> dict:
         rep = json.loads(path.read_text())
         r, m = rep["roofline"], rep["memory_analysis"]
         reports[path.stem] = rep
-        log(f"  {path.stem}: {m['peak_bytes_per_device'] / 2**30:.3f} GiB/"
-            f"device (args {m['argument_bytes'] / 2**30:.3f}), compute "
+        cut = f" ({rep['layers']} layers)" if rep.get("layers") else ""
+        log(f"  {path.stem}{cut}: "
+            f"{m['peak_bytes_per_device'] / 2**30:.3f} GiB/device (args "
+            f"{m['argument_bytes'] / 2**30:.3f}), compute "
             f"{r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f}"
             f" ms, collective {r['collective_s'] * 1e3:.3f} ms -> "
             f"{r['dominant']}; flops "
@@ -4222,6 +4297,9 @@ def main() -> int:
         log("phase 13: GNN training at full width (gin-tu, pna, egnn, "
             "meshgraphnet), gnn_dist over NCCL, the motif example")
         phase_gnn(dev)
+    log("phase 13b: the examples on the card (quickstart_torch, "
+        "continuous_enum_torch, train_lm_torch)")
+    phase_examples()
     log("phase 14: the dry-run tooling (the kernel ops; a qwen2-0.5b "
         "training step on a (1, 1) mesh against no mesh, and the op counter "
         "on it; the cells on the 16 x 16 and 2 x 16 x 16 meshes, run in "

@@ -72,7 +72,8 @@ def analyze_cell(arch: str, shape: str, multi_pod: bool = False,
                  spec=None) -> Dict:
     """The cell's report. ``mesh_shape`` (with its axes named as the
     production mesh's) replaces the production mesh, and ``spec`` the
-    registry's arch (the tests' small meshes and smoke configs)."""
+    registry's arch (the tests' small meshes and smoke configs, a cut
+    depth: :func:`cut_depth`)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
     from .mesh import PROD_AXES, PROD_SHAPE, fake_world, make_mesh
@@ -156,6 +157,17 @@ def analyze_cell(arch: str, shape: str, multi_pod: bool = False,
     }
 
 
+def cut_depth(spec, layers: int):
+    """The LM ``spec`` at its first ``layers`` layers (the per-layer terms
+    of its report scale with them)."""
+    import dataclasses
+    if spec.family != "lm":
+        raise ValueError(f"--layers cuts an LM's depth; {spec.name} is "
+                         f"{spec.family}")
+    return dataclasses.replace(spec, model_cfg=dataclasses.replace(
+        spec.model_cfg, n_layers=layers))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
@@ -171,9 +183,11 @@ def main(argv=None) -> int:
                     help="LM train-cell parameter layout (see "
                          "launch/shardings.py)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--layers", type=int, default=None,
+                    help="LM cells: trace the first N layers only")
     args = ap.parse_args(argv)
 
-    from ..configs import all_cells
+    from ..configs import all_cells, get_config
     if args.all:
         cells = all_cells(include_benu=args.include_benu)
     elif args.cells:
@@ -188,9 +202,13 @@ def main(argv=None) -> int:
         tag = "multipod" if args.multi_pod else "pod"
         name = f"{arch.replace('/', '_')}__{shape}__{tag}"
         try:
+            spec = None if args.layers is None else \
+                cut_depth(get_config(arch), args.layers)
             rep = analyze_cell(arch, shape, args.multi_pod,
                                sharding_mode=args.sharding_mode,
-                               device=args.device)
+                               device=args.device, spec=spec)
+            if args.layers is not None:
+                rep["layers"] = args.layers
             with open(os.path.join(args.out, name + ".json"), "w") as f:
                 json.dump(rep, f, indent=1)
             r = rep["roofline"]

@@ -210,6 +210,14 @@ def _lm_cell(spec: ArchSpec, shape: str, mesh, multi_pod: bool,
         pspecs = lm_param_specs(shapes)
     pspecs = sanitize(pspecs, shapes, ms)
     ispecs = spec.input_specs(shape)
+    if sp.kind in ("lm_train", "lm_prefill") and \
+            sp.dims["batch"] % ctx.dp_size:
+        # a batch the dp ranks do not divide is padded to a multiple of
+        # them, as GSPMD pads it: rank 0 holds ceil(batch / dp) rows
+        rows = -(-sp.dims["batch"] // ctx.dp_size) * ctx.dp_size
+        ispecs = {k: torch.empty((rows,) + tuple(v.shape[1:]),
+                                 dtype=v.dtype, device="meta")
+                  for k, v in ispecs.items()}
     if fsdp2d:
         fa = flat_axes(multi_pod)
         bspecs = {k: (fa,) + (None,) * (v.ndim - 1)

@@ -32,7 +32,7 @@ from torch import nn
 
 from ..kernels import ops as kops
 from .common import NO_SHARD, ShardCtx, _is_dtensor, dense_init, \
-    merge_heads, rmsnorm
+    merge_heads, rmsnorm, row_offset
 from .rope import apply_rope
 
 NEG_INF = -1e30
@@ -76,6 +76,85 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                v.transpose(1, 2), causal=causal,
                                scale=scale, impl=impl)
     return out.transpose(1, 2)
+
+
+def heads_block(x: torch.Tensor, h: int, d: int,
+                ctx: ShardCtx) -> torch.Tensor:
+    """This rank's heads of a DTensor ``x [B, T, h * d]`` as a local
+    ``[b, T, hl, d]`` block, the heads laid over ``tp`` as GSPMD lays them
+    out: ``h`` padded with zero heads to ``hl * n_tp`` (``hl =
+    ceil(h / n_tp)``), rank ``i`` of tp holding heads ``[i * hl, (i + 1)
+    * hl)``. When ``n_tp`` divides ``h`` that is x's local block over tp;
+    else x is gathered whole over tp, and the block's gradient is a
+    partial sum over tp (each rank's part is its own heads')."""
+    n_tp, i = ctx.tp_block()
+    hl = -(-h // n_tp)
+    if h % n_tp == 0:
+        loc = ctx.shard(x, ctx.dp, None, ctx.tp).to_local()
+        return loc.view(loc.shape[0], loc.shape[1], hl, d)
+    loc = _whole_over_tp(x, ctx)
+    b, t = loc.shape[0], loc.shape[1]
+    lo, hi = min(i * hl, h), min((i + 1) * hl, h)
+    blk = loc.view(b, t, h, d)[:, :, lo:hi]
+    if hi - lo < hl:
+        blk = torch.cat([blk, blk.new_zeros((b, t, hl - (hi - lo), d))],
+                        dim=2)
+    return blk
+
+
+def _whole_over_tp(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """The local rows of a DTensor ``x`` over ``ctx.dp``, whole over tp
+    (gathered), for a rank that uses only part of them: the gradient is a
+    partial sum over tp."""
+    from torch.distributed.tensor import Partial
+    x = ctx.shard(x, ctx.dp, None, None)
+    tpd = ctx.tp_dims()
+    return x.to_local(grad_placements=[
+        Partial() if j in tpd else p for j, p in enumerate(x.placements)])
+
+
+def kv_block(x: torch.Tensor, kvh: int, h: int, d: int,
+             ctx: ShardCtx) -> torch.Tensor:
+    """The kv heads ``x [B, T, kvh * d]`` that this rank's q heads
+    (:func:`heads_block` of ``h`` heads) read, local. When ``n_tp``
+    divides both head counts the rank's kv block serves its q block (the
+    group ``h // kvh`` unchanged); else each local q head gets its own kv
+    head (group 1), as the reference expands the kv heads to ``h`` before
+    they are laid over tp (a padded head reads the last kv head: its q is
+    zero)."""
+    n_tp, i = ctx.tp_block()
+    if h % n_tp == 0 and kvh % n_tp == 0:
+        return heads_block(x, kvh, d, ctx)
+    loc = _whole_over_tp(x, ctx)
+    whole = loc.view(loc.shape[0], loc.shape[1], kvh, d)
+    hl, g = -(-h // n_tp), h // kvh
+    idx = torch.tensor([min(j, h - 1) // g for j in range(i * hl,
+                                                           (i + 1) * hl)],
+                       device=whole.device)
+    return whole.index_select(2, idx)
+
+
+def merge_heads_block(o: torch.Tensor, h: int, ctx: ShardCtx,
+                      like: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`heads_block`: this rank's heads ``o [b, T,
+    hl, dv]`` -> the DTensor ``[B, T, h * dv]`` laid over ``ctx.dp`` on
+    its rows (as ``like``) and over ``tp`` on its width (the layout the
+    output projection contracts: a block of heads when ``n_tp`` divides
+    ``h``; else the padded heads gathered over tp, the padding cut, and
+    the width split evenly again)."""
+    from torch.distributed.tensor import DTensor, Shard
+    n_tp, _ = ctx.tp_block()
+    b, t, hl, dv = o.shape
+    mesh, tpd = ctx.mesh, ctx.tp_dims()
+    rows = ctx.placements(like, ctx.dp, None, None)
+    wide = [Shard(2) if j in tpd else p for j, p in enumerate(rows)]
+    flat = DTensor.from_local(o.reshape(b, t, hl * dv), mesh, wide,
+                              run_check=False)
+    if h % n_tp == 0:
+        return flat
+    whole = flat.redistribute(mesh, rows).to_local()[..., :h * dv]
+    out = DTensor.from_local(whole, mesh, rows, run_check=False)
+    return ctx.shard(out, ctx.dp, None, ctx.tp)
 
 
 def _decode_softmax(s: torch.Tensor, group=None) -> torch.Tensor:
@@ -186,9 +265,13 @@ class GQAAttention(nn.Module):
         the cache or None). ``norm_impl`` is MLA's (GQA has no norm)."""
         b, t, _ = x.shape
         h, kvh, dh = self.n_heads, self.n_kv, self.d_head
-        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        w = ctx.weight
+        q, k, v = x @ w(self.wq), x @ w(self.wk), x @ w(self.wv)
         if self.bq is not None:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
+        if cache is None and ctx.mesh is not None and _is_dtensor(q):
+            out = self._attend_sharded(q, k, v, positions, attn_impl, ctx)
+            return ctx.shard(out @ w(self.wo), ctx.dp, None, None), None
         q = ctx.shard(ctx.split_heads(q, h, dh), ctx.dp, None, ctx.tp, None)
         q = apply_rope(q, positions, self.rope_theta)
         k = apply_rope(ctx.split_heads(k, kvh, dh), positions,
@@ -210,8 +293,26 @@ class GQAAttention(nn.Module):
             out = decode_attention(q, cache["k"], cache["v"], length + t)
         else:
             out = full_attention(q, k, v, causal=True, impl=attn_impl)
-        out = merge_heads(out) @ self.wo
+        out = merge_heads(out) @ w(self.wo)
         return ctx.shard(out, ctx.dp, None, None), cache
+
+    def _attend_sharded(self, q, k, v, positions, attn_impl: str,
+                        ctx: ShardCtx) -> torch.Tensor:
+        """Causal attention over a mesh on this rank's heads (q, k, v the
+        projections ``[B, T, width]``, DTensors): the heads over tp as
+        GSPMD lays them out (:func:`heads_block`, :func:`kv_block`),
+        RoPE and the flash op on the local blocks, the result laid out
+        for the output projection (:func:`merge_heads_block`)."""
+        h, kvh, dh = self.n_heads, self.n_kv, self.d_head
+        ql = heads_block(q, h, dh, ctx)
+        kl, vl = (kv_block(x, kvh, h, dh, ctx) for x in (k, v))
+        first = row_offset(ctx.placements(q, ctx.dp, None, None), ctx.mesh,
+                           ql.shape[0])
+        pos = positions[first:first + ql.shape[0]]
+        ql = apply_rope(ql, pos, self.rope_theta)
+        kl = apply_rope(kl, pos, self.rope_theta)
+        out = full_attention(ql, kl, vl, causal=True, impl=attn_impl)
+        return merge_heads_block(out, h, ctx, q)
 
     def _decode_sharded(self, q, k, v, cache: Dict, ctx: ShardCtx):
         """:func:`decode_attention` on this rank's block of a cache whose
@@ -310,10 +411,11 @@ class MLAAttention(nn.Module):
         h, r = self.n_heads, self.kv_lora
         nope, rope_d, vd = self.qk_nope, self.qk_rope, self.v_dim
         scale = (nope + rope_d) ** -0.5
-        q = (x @ self.wq).reshape(b, t, h, nope + rope_d)
+        w = ctx.weight
+        q = (x @ w(self.wq)).reshape(b, t, h, nope + rope_d)
         q_nope = q[..., :nope]
         q_rope = apply_rope(q[..., nope:], positions, self.rope_theta)
-        kv_a = x @ self.wkv_a                             # [B, T, r + rope]
+        kv_a = x @ w(self.wkv_a)                          # [B, T, r + rope]
         # the norm kernel takes contiguous rows: the latent part of each
         # row of kv_a is copied out here ([B, T, r])
         c_kv = rmsnorm(kv_a[..., :r].contiguous(), self.norm_ckv,
@@ -348,7 +450,7 @@ class MLAAttention(nn.Module):
             # v is a view of kv, read in place by the kernel
             out = full_attention(qq, k, kv[..., nope:], causal=True,
                                  impl=attn_impl, scale=scale)
-        out = merge_heads(out) @ self.wo
+        out = merge_heads(out) @ w(self.wo)
         return ctx.shard(out, ctx.dp, None, None), cache
 
     def _decode_sharded(self, q_nope, q_rope, c_kv, k_rope, wkv_b,

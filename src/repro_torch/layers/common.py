@@ -42,13 +42,17 @@ class ShardCtx:
         DTensor's views and their backward need even shards)."""
         if self.mesh is None or not _is_dtensor(x):
             return x
-        from ..launch.shardings import mesh_shape, placements, sanitize_one
-        axes = sanitize_one(axes, x.shape, mesh_shape(self.mesh),
-                            rehome=False)
-        want = placements(axes, self.mesh)
+        want = self.placements(x, *axes)
         if tuple(x.placements) == tuple(want):
             return x
         return x.redistribute(self.mesh, want)
+
+    def placements(self, x: torch.Tensor, *axes: Axis) -> list:
+        """The placements :meth:`shard` lays ``x`` out in (no data
+        moved)."""
+        from ..launch.shardings import mesh_shape, placements, sanitize_one
+        return placements(sanitize_one(axes, x.shape, mesh_shape(self.mesh),
+                                       rehome=False), self.mesh)
 
     def split_heads(self, x: torch.Tensor, h: int, d: int) -> torch.Tensor:
         """``[B, T, h * d] -> [B, T, h, d]``. With a mesh the flattened
@@ -70,6 +74,37 @@ class ShardCtx:
             loc.reshape(loc.shape[0], t, -1, d), x.device_mesh, x.placements,
             run_check=False, shape=(b, t, h, d),
             stride=(t * h * d, h * d, d, 1))
+
+    def weight(self, w: torch.Tensor) -> torch.Tensor:
+        """A parameter in the layout the products take it in: gathered
+        over the dp axes (FSDP's all-gather; its gradient comes back as a
+        reduce-scatter), kept as it is over ``tp``. Without a mesh, or on a
+        plain tensor, ``w`` itself. (Left to itself, DTensor may rather
+        move the activations and contract a dp-sharded weight dim.)"""
+        if self.mesh is None or not _is_dtensor(w):
+            return w
+        from torch.distributed.tensor import Replicate
+        tpd = self.tp_dims()
+        want = [p if j in tpd else Replicate()
+                for j, p in enumerate(w.placements)]
+        if want == list(w.placements):
+            return w
+        return w.redistribute(self.mesh, want)
+
+    def tp_dims(self) -> Tuple[int, ...]:
+        """The mesh dims of the ``tp`` axes."""
+        names = list(self.mesh.mesh_dim_names)
+        return tuple(names.index(a) for a in (
+            (self.tp,) if isinstance(self.tp, str) else self.tp or ()))
+
+    def tp_block(self) -> Tuple[int, int]:
+        """``(n_tp, i)``: the size of the ``tp`` axes and this rank's index
+        along them (major to minor)."""
+        coord = self.mesh.get_coordinate()
+        n, i = 1, 0
+        for j in self.tp_dims():
+            n, i = n * self.mesh.shape[j], i * self.mesh.shape[j] + coord[j]
+        return n, i
 
     @property
     def dp_size(self) -> int:
@@ -107,6 +142,99 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
                               x.device_mesh, pl, run_check=False,
                               shape=(b, t, width), stride=(t * width, width,
                                                             1))
+
+
+def all_reduce_over(x: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """``x`` (a local tensor) summed over the ranks of the mesh dims
+    ``dims``."""
+    import torch.distributed._functional_collectives as funcol
+    for i in dims:
+        x = funcol.wait_tensor(funcol.all_reduce(x, "sum", (mesh, i)))
+    return x
+
+
+# Collectives on local tensors with their gradients stated: the mesh-only
+# code of the layers runs its products on local blocks and calls these
+# where ranks meet.
+
+
+class _AllReduce(torch.autograd.Function):
+    """A sum over the ranks of the mesh dims ``dims`` in the forward
+    (``fwd``; else the identity) and in the backward (``bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims, fwd, bwd):
+        ctx.args = (mesh, dims, bwd)
+        return all_reduce_over(x, mesh, dims) if fwd else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dims, bwd = ctx.args
+        return (all_reduce_over(g, mesh, dims) if bwd else g), None, None, \
+            None, None
+
+
+def sum_over(x: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of the mesh dims ``dims``, where
+    every rank then computes alike from the sum but holds only its own
+    part of the result's gradient (a partial sum): the backward sums the
+    gradient too."""
+    return _AllReduce.apply(x, mesh, tuple(dims), True, True)
+
+
+def sum_partials_over(x: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """The sum of partial products ``x`` over the ranks of the mesh dims
+    ``dims``, where every rank then computes alike from the sum and holds
+    its whole gradient: each rank's part takes that gradient as it is (an
+    identity backward)."""
+    return _AllReduce.apply(x, mesh, tuple(dims), True, False)
+
+
+def sum_grad_over(x: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """Identity; the gradient is summed over the ranks of the mesh dims
+    ``dims`` (each holds only its own part of it)."""
+    return _AllReduce.apply(x, mesh, tuple(dims), False, True)
+
+
+def mean_over(x: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of the mesh dims ``dims``, used
+    alike on every rank: each rank's share takes its gradient over the
+    rank count."""
+    return sum_partials_over(x, mesh, dims) / math.prod(
+        mesh.shape[i] for i in dims)
+
+
+class AllGather(torch.autograd.Function):
+    """All-gather of local tensors along ``dim`` over mesh dim
+    ``mesh_dim``, where every rank of the mesh dim then computes the same
+    thing from the gathered tensor. Backward: this rank's block of its
+    own gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh, mesh_dim):
+        import torch.distributed._functional_collectives as funcol
+        ctx.args = (dim, mesh, mesh_dim)
+        return funcol.wait_tensor(
+            funcol.all_gather_tensor(x, dim, (mesh, mesh_dim)))
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, mesh, mesh_dim = ctx.args
+        n, i = mesh.shape[mesh_dim], mesh.get_coordinate()[mesh_dim]
+        return g.chunk(n, dim=dim)[i].contiguous(), None, None, None
+
+
+def row_offset(placements, mesh, n_rows: int) -> int:
+    """The global index of the first of a rank's ``n_rows`` local rows
+    (dim 0) of a tensor laid out as ``placements`` (even shards, in
+    mesh-dim order)."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    idx = 0
+    for j, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            idx = idx * mesh.shape[j] + coord[j]
+    return idx * n_rows
 
 
 def _is_dtensor(x: Any) -> bool:

@@ -51,14 +51,14 @@ Shared experts (DeepSeek-MoE) run as a dense SwiGLU of width
 from __future__ import annotations
 
 import contextlib
-import math
 from typing import Iterator, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import NO_SHARD, ShardCtx, _is_dtensor, dense_init, swish
+from .common import (NO_SHARD, AllGather, ShardCtx, _is_dtensor,
+                     dense_init, mean_over, sum_grad_over, sum_over, swish)
 from .mlp import SwiGLU
 
 
@@ -157,66 +157,31 @@ def expert_products(xin: torch.Tensor, w_gate: torch.Tensor,
     return torch.bmm(h, w_down)
 
 
-class _AllGather(torch.autograd.Function):
-    """All-gather of local tensors along ``dim`` over mesh dim
-    ``mesh_dim``. Backward: the sum over the ranks of their gradients of
-    this rank's block (a reduce-scatter), or, with ``replicated`` (every
-    rank of the mesh dim then computes the same thing from the gathered
-    tensor), this rank's block of its own gradient."""
+class _AllToAll(torch.autograd.Function):
+    """Over mesh dim ``mesh_dim`` (``n`` ranks): ``x`` split into ``n``
+    blocks along ``split``, block ``j`` sent to rank ``j``, the blocks
+    received concatenated along ``cat`` (in rank order). Backward: the
+    inverse exchange."""
 
     @staticmethod
-    def forward(ctx, x, dim, mesh, mesh_dim, replicated):
-        import torch.distributed._functional_collectives as funcol
-        ctx.args = (dim, mesh, mesh_dim, replicated)
-        return funcol.wait_tensor(
-            funcol.all_gather_tensor(x, dim, (mesh, mesh_dim)))
+    def forward(ctx, x, mesh, mesh_dim, split, cat):
+        ctx.args = (mesh, mesh_dim, split, cat)
+        return _all_to_all(x, mesh, mesh_dim, split, cat)
 
     @staticmethod
     def backward(ctx, g):
-        import torch.distributed._functional_collectives as funcol
-        dim, mesh, mesh_dim, replicated = ctx.args
-        if replicated:
-            n, i = mesh.shape[mesh_dim], mesh.get_coordinate()[mesh_dim]
-            return g.chunk(n, dim=dim)[i].contiguous(), None, None, None, \
-                None
-        return funcol.wait_tensor(funcol.reduce_scatter_tensor(
-            g.contiguous(), "sum", dim, (mesh, mesh_dim))), None, None, \
+        mesh, mesh_dim, split, cat = ctx.args
+        return _all_to_all(g, mesh, mesh_dim, cat, split), None, None, \
             None, None
 
 
-class _SumGradOver(torch.autograd.Function):
-    """Identity; the gradient is summed over the mesh dims ``dims``."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, dims):
-        ctx.args = (mesh, dims)
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        import torch.distributed._functional_collectives as funcol
-        mesh, dims = ctx.args
-        for i in dims:
-            g = funcol.wait_tensor(funcol.all_reduce(g, "sum", (mesh, i)))
-        return g, None, None
-
-
-class _MeanOver(torch.autograd.Function):
-    """The mean of ``x`` over the ranks of the mesh dims ``dims`` (an
-    all-reduce). Backward: the result is used alike on every rank, so
-    each rank's share takes its gradient over the rank count."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, dims):
-        import torch.distributed._functional_collectives as funcol
-        ctx.n = math.prod(mesh.shape[i] for i in dims)
-        for i in dims:
-            x = funcol.wait_tensor(funcol.all_reduce(x, "sum", (mesh, i)))
-        return x / ctx.n
-
-    @staticmethod
-    def backward(ctx, g):
-        return g / ctx.n, None, None
+def _all_to_all(x, mesh, mesh_dim: int, split: int, cat: int):
+    import torch.distributed._functional_collectives as funcol
+    n = mesh.shape[mesh_dim]
+    send = torch.stack(x.chunk(n, dim=split)).contiguous()
+    got = funcol.wait_tensor(funcol.all_to_all_single(
+        send.flatten(0, 1), None, None, (mesh, mesh_dim)))
+    return torch.cat(got.view(send.shape).unbind(0), dim=cat)
 
 
 class MoE(nn.Module):
@@ -336,12 +301,16 @@ class MoE(nn.Module):
         batch over the ``dp`` axes; the router gathered whole), so the
         capacity is the local token count's, as in GShard's local
         dispatch (the reference sorts the global token set under GSPMD).
-        The slots ``[E, cap, D]`` are then laid out as the reference's
-        constraint says: experts over ``tp``, replicated over ``dp``
-        (``E`` padded to a multiple of ``tp``, as GSPMD pads): each rank
-        runs its experts on every dp rank's slots, by explicit
-        all-gathers, with their weights gathered whole; the
-        rank's own slots come back for a local combine. The aux loss is
+        The experts then run as the reference's layout has them: the
+        slots ``[E, cap, D]`` with their experts over ``tp`` (``E``
+        padded to a multiple of tp, as GSPMD pads), every dp rank's
+        slots on each rank, and the expert weights as FSDP shards them,
+        over ``D`` on the dp axes, never gathered: all-to-alls over dp
+        hand each rank its block of ``D`` of every dp rank's slots, the
+        gate and up products are partial sums over dp (all-reduced), the
+        down product gives the rank's block of ``D``, and the inverse
+        all-to-alls bring each rank its own slots whole. The experts'
+        outputs come back over tp for a local combine. The aux loss is
         the mean over the ``dp`` ranks of each one's local loss."""
         from torch.distributed.tensor import DTensor, Partial, Replicate, \
             Shard
@@ -350,9 +319,7 @@ class MoE(nn.Module):
         x = ctx.shard(x, ctx.dp, None, None)
         dp_dims = [i for i, p in enumerate(x.placements)
                    if isinstance(p, Shard)]
-        names = list(mesh.mesh_dim_names)
-        tp_dims = [names.index(a) for a in (
-            (ctx.tp,) if isinstance(ctx.tp, str) else ctx.tp or ())]
+        tp_dims = list(ctx.tp_dims())
         xl = x.to_local()
         xf = xl.reshape(-1, d)
         # the router's gradient from this rank's tokens: a partial sum over
@@ -363,41 +330,39 @@ class MoE(nn.Module):
                 for i in range(mesh.ndim)])
         r = self.route(xf, router)
         disp = self.dispatch(r.experts)
-        # the reference's constraint: slots over tp (its experts, E padded
-        # to a multiple of tp as GSPMD pads), replicated over dp. This
-        # rank's experts take every dp rank's slots (all-gathers, whose
-        # backward reduce-scatters), with their weights gathered whole;
-        # all the experts' outputs come back over tp, and the rank keeps
-        # its own slots
-        e, cap = disp.slot_tok.shape
-        coord = mesh.get_coordinate()
-        n_tp = math.prod(mesh.shape[i] for i in tp_dims)
+        e = disp.slot_tok.shape[0]
+        n_tp, t_idx = ctx.tp_block()
         e_loc = -(-e // n_tp)
-        t_idx = 0
-        for i in tp_dims:
-            t_idx = t_idx * mesh.shape[i] + coord[i]
         own = slice(min(t_idx * e_loc, e), min((t_idx + 1) * e_loc, e))
         # this rank's experts see only their slots: their part of the
         # tokens' gradient is summed over tp (the router's part is whole)
-        xs = self.gather(_SumGradOver.apply(xf, mesh, tp_dims), disp)[own]
-        for i in reversed(dp_dims):            # minor dims first
-            xs = _AllGather.apply(xs, 1, mesh, i, False)
-        # the weights' gradients: this rank's experts (a partial sum over
-        # tp) on its own slots (over dp)
-        wg, wu, wd = (w.redistribute(mesh, [Replicate()] * mesh.ndim)
-                      .to_local(grad_placements=[Partial()] * mesh.ndim)
-                      [own] for w in (self.w_gate, self.w_up, self.w_down))
-        y = expert_products(xs, wg, wu, wd)
+        xs = self.gather(sum_grad_over(xf, mesh, tp_dims), disp)[own]
+        # every dp rank's slots, this rank's block of D (major dims first)
+        for i in dp_dims:
+            xs = _AllToAll.apply(xs, mesh, i, 2, 1)
+
+        # the weights as FSDP lays them out: this rank's experts, its block
+        # of D; each gradient whole over its D block (every dp rank's
+        # slots are here), a partial sum over tp (its own experts)
+        def local(w, ddim):
+            pl = [Shard(ddim) if i in dp_dims else Replicate()
+                  for i in range(mesh.ndim)]
+            return w.redistribute(mesh, pl).to_local(grad_placements=[
+                p if i in dp_dims else Partial()
+                for i, p in enumerate(pl)])[own]
+        wg, wu, wd = local(self.w_gate, 1), local(self.w_up, 1), \
+            local(self.w_down, 2)
+        h = swish(sum_over(torch.bmm(xs, wg), mesh, dp_dims)) * \
+            sum_over(torch.bmm(xs, wu), mesh, dp_dims)
+        y = torch.bmm(h, wd)
+        for i in reversed(dp_dims):            # this rank's slots, whole
+            y = _AllToAll.apply(y, mesh, i, 1, 2)
         if y.shape[0] < e_loc:
             y = torch.cat([y, y.new_zeros((e_loc - y.shape[0],)
                                           + y.shape[1:])])
         for i in reversed(tp_dims):
-            y = _AllGather.apply(y, 0, mesh, i, True)
-        start = 0
-        for i in dp_dims:
-            start = start * mesh.shape[i] + coord[i]
-        y = y[:e, start * cap:(start + 1) * cap]
-        y = torch.cat([y.flatten(0, 1), y.new_zeros((1, d))])
+            y = AllGather.apply(y, 0, mesh, i)
+        y = torch.cat([y[:e].flatten(0, 1), y.new_zeros((1, d))])
         out = self.combine(y, r.gates, disp).view(xl.shape)
         out = DTensor.from_local(out, mesh, x.placements, run_check=False)
         if self.shared is not None:
@@ -406,7 +371,7 @@ class MoE(nn.Module):
         # placement would meet the cross entropy's, whose kind of partial
         # differs between torch versions)
         aux = DTensor.from_local(
-            _MeanOver.apply(self.aux_loss(r), mesh, dp_dims), mesh,
+            mean_over(self.aux_loss(r), mesh, dp_dims), mesh,
             [Replicate()] * mesh.ndim, run_check=False)
         return ctx.shard(out, ctx.dp, None, None), aux
 

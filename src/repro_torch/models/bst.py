@@ -46,8 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.engine_torch import resolve_device
-from ..layers.common import NO_SHARD, ShardCtx, dense_init, embed_init, \
-    layernorm
+from ..layers.common import NO_SHARD, ShardCtx, _is_dtensor, dense_init, \
+    embed_init, layernorm
 from ..layers.embedding_bag import embedding_bag_fixed, embedding_lookup
 from ..layers.mlp import MLP
 
@@ -162,6 +162,32 @@ def user_tower(model: BST, hist: torch.Tensor, user_feats: torch.Tensor,
     return e_hist, e_user
 
 
+def encode(model: BST, seq: torch.Tensor,
+           ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
+    """The encoder blocks over ``seq [B, T, d]``. Under a mesh they run on
+    local blocks, as the reference's layout has them: each rank its rows
+    over ``ctx.dp`` (replicated over the other axes, where every rank
+    computes the same rows) with the blocks' weights whole; a weight's
+    gradient is a partial sum over the dp dims. (Left to DTensor, the
+    replicated rows would be split over the other axes.)"""
+    if ctx.mesh is None or not _is_dtensor(seq):
+        for block in model.blocks:
+            seq = block(seq)
+        return seq
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.func import functional_call
+    seq = ctx.shard(seq, ctx.dp, None, None)
+    mesh, pl = ctx.mesh, seq.placements
+    whole = [Replicate()] * mesh.ndim
+    grad = [Partial() if isinstance(p, Shard) else Replicate() for p in pl]
+    x = seq.to_local()
+    for block in model.blocks:
+        x = functional_call(block, {
+            k: p.redistribute(mesh, whole).to_local(grad_placements=grad)
+            for k, p in block.named_parameters()}, (x,))
+    return DTensor.from_local(x, mesh, pl, run_check=False)
+
+
 def bst_scores(model: BST, hist: torch.Tensor, target: torch.Tensor,
                user_feats: torch.Tensor,
                ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
@@ -169,12 +195,11 @@ def bst_scores(model: BST, hist: torch.Tensor, target: torch.Tensor,
     b = hist.shape[0]
     e_hist, e_user = user_tower(model, hist, user_feats, ctx)
     e_tgt = embedding_lookup(model.item_emb, target)[:, None, :]
-    seq = torch.cat([e_hist, e_tgt], dim=1) + model.pos_emb[None]
-    for block in model.blocks:
-        seq = block(seq)
+    seq = encode(model, torch.cat([e_hist, e_tgt], dim=1)
+                 + model.pos_emb[None], ctx)
     feats = ctx.shard(torch.cat([seq.reshape(b, -1), e_user], dim=-1),
                       ctx.dp, None)
-    return model.mlp(feats)[..., 0]
+    return model.mlp(feats, ctx=ctx)[..., 0]
 
 
 def bst_loss(model: BST, batch: Mapping[str, torch.Tensor],

@@ -58,8 +58,8 @@ from torch.utils.checkpoint import checkpoint
 from ..core.engine_torch import resolve_device
 from ..layers.attention import (GQAAttention, MLAAttention, init_gqa_cache,
                                 init_mla_cache)
-from ..layers.common import (NO_SHARD, RMSNorm, ShardCtx, dense_init,
-                             embed_init, softmax_cross_entropy)
+from ..layers.common import (NO_SHARD, RMSNorm, ShardCtx, _is_dtensor,
+                             dense_init, embed_init, softmax_cross_entropy)
 from ..layers.embedding_bag import lookup_sharded
 from ..layers.mlp import SwiGLU
 from ..layers.moe import MoE
@@ -241,8 +241,44 @@ class Transformer(nn.Module):
         if last_only:
             x = x[:, -1:].contiguous()          # the norm kernel's layout
         x = self.final_norm(x, impl=norm_impl)
+        if ctx.mesh is not None and _is_dtensor(x):
+            return _head_sharded(x, self.embed if self.lm_head is None
+                                 else self.lm_head, self.lm_head is None,
+                                 ctx), aux
         head = self.embed.T if self.lm_head is None else self.lm_head
-        return ctx.shard(x @ head, ctx.dp, None, ctx.tp), aux
+        return x @ head, aux
+
+
+def _head_sharded(x: torch.Tensor, w: torch.Tensor, tied: bool,
+                  ctx: ShardCtx) -> torch.Tensor:
+    """The logits ``x @ w`` (``w.T`` when ``tied``: the embedding ``[V,
+    D]``) over a mesh, on local shards: x's rows over ``dp``, the weight
+    gathered whole over ``dp`` and laid over ``tp`` on its vocab when
+    ``tp`` divides it (else whole), the logits then ``[rows, vocab]``
+    blocks. Every gradient's layout is stated: the weight's is a partial
+    sum over the dp dims (each rank's rows) in the layout it was taken
+    in, so both gradients of a tied embedding (this and the lookup's)
+    reach the parameter in its own placements and add there; x's is a
+    partial sum over tp when the vocab is split."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    from ..launch.shardings import mesh_shape, placements, sanitize_one
+    mesh = ctx.mesh
+    x = ctx.shard(x, ctx.dp, None, None)
+    vdim = 0 if tied else 1
+    spec = [None, None]
+    spec[vdim] = ctx.tp
+    want = placements(sanitize_one(tuple(spec), w.shape, mesh_shape(mesh),
+                                   rehome=False), mesh)
+    split = [isinstance(p, Shard) for p in want]
+    wl = w.redistribute(mesh, want).to_local(grad_placements=[
+        Partial() if isinstance(px, Shard) else pw
+        for px, pw in zip(x.placements, want)])
+    xl = x.to_local(grad_placements=[
+        Partial() if sp else px for px, sp in zip(x.placements, split)])
+    yl = xl @ (wl.T if tied else wl)
+    return DTensor.from_local(yl, mesh, [
+        Shard(2) if sp else px for px, sp in zip(x.placements, split)],
+        run_check=False)
 
 
 def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Transformer:

@@ -2,6 +2,7 @@
 package, on CPU. Every comparison is exact."""
 
 import dataclasses
+import glob
 import os
 import pkgutil
 import re
@@ -113,6 +114,12 @@ def test_sources_import_neither_jax_nor_repro():
                                                   "repro_torch")):
         paths += [os.path.join(dirpath, f) for f in files
                   if f.endswith(".py")]
+    examples = sorted(glob.glob(os.path.join(ROOT, "examples",
+                                             "*_torch.py")))
+    assert [os.path.basename(p) for p in examples] == [
+        "continuous_enum_torch.py", "motif_features_torch.py",
+        "quickstart_torch.py", "train_lm_torch.py"]
+    paths += examples
     assert len(paths) > 10
     for sub in ("layers", "models", "configs"):
         assert any(os.sep + sub + os.sep in p for p in paths), sub
