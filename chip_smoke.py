@@ -175,7 +175,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the cells over the 16 x 16 mesh, and qwen2-0.5b's and granite's
    train_4k, each alone, over 16 x 16 and 2 x 16 x 16), fake
    tensors on the card's device, every cell ``OK`` with its per-device
-   GiB, the three roofline terms and the dominant one printed. They run
+   GiB, the three roofline terms, the dominant one and the collective
+   wire bytes a device by kind (the ring model's, as the reference
+   counts them) printed. They run
    beside phase 4's graph generation (host set-up, not a measurement of
    the port), which phase 4 waits on before its first timed run, so no
    timed run of the script shares the host with them.
@@ -3860,7 +3862,8 @@ def wait_dryrun(procs: list, t0: float) -> list:
 
 def report_dryrun(done: list, out: Path) -> dict:
     """Print each cell's line of :func:`wait_dryrun`'s runs (per-device
-    GiB, the three roofline terms, the dominant one). Raises when a run
+    GiB, the three roofline terms, the dominant one, the wire bytes by
+    kind). Raises when a run
     failed or a cell is not OK. Returns the reports."""
     failed = []
     for tag, rc, text in done:
@@ -3881,12 +3884,14 @@ def report_dryrun(done: list, out: Path) -> dict:
         r, m = rep["roofline"], rep["memory_analysis"]
         reports[path.stem] = rep
         cut = f" ({rep['layers']} layers)" if rep.get("layers") else ""
+        wire = ", ".join(f"{k} {v:.4g}" for k, v in
+                         rep["collectives_wire"].items() if v) or "none"
         log(f"  {path.stem}{cut}: "
             f"{m['peak_bytes_per_device'] / 2**30:.3f} GiB/device (args "
             f"{m['argument_bytes'] / 2**30:.3f}), compute "
             f"{r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f}"
             f" ms, collective {r['collective_s'] * 1e3:.3f} ms -> "
-            f"{r['dominant']}; flops "
+            f"{r['dominant']}; wire B/device by kind: {wire}; flops "
             f"{rep['cost_analysis']['flops_per_chip']:.4g}, kernel ops' bytes "
             f"{rep['cost_analysis']['kernel_bytes_by_op']}")
     return reports

@@ -110,7 +110,7 @@ class OocEngine:
         self._collect = collect_matches
         self._intersect = intersect_impl
         self._compaction = compaction
-        self._live = _liveness(plan)
+        self._live = _liveness(plan, collect_matches)
         self.segments = split_segments(plan)
 
     # ------------------------------------------------------------ segments
@@ -155,6 +155,8 @@ class OocEngine:
                     env, valid, cand, ins.target, caps[enu_i],
                     self._live[ip + 1], sentinel,
                     compaction=self._compaction)
+                if ins.target not in self._live[ip + 1]:
+                    del new_env[ins.target]     # read by no later instruction
                 env.clear()
                 env.update(new_env)
                 st["valid"] = valid

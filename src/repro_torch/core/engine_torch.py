@@ -97,13 +97,23 @@ class DeviceGraph:
 # --------------------------------------------------------------------------
 
 
-def _liveness(plan: Plan) -> List[frozenset]:
-    """live[i] = vars read at instruction >= i (gathered across ENUs)."""
+def _liveness(plan: Plan, collect_matches: bool = False
+              ) -> List[frozenset]:
+    """live[i] = vars read at instruction >= i (gathered across ENUs): a
+    TRC intersects its two adjacency operands (its two vertex keys are
+    not read), and a RES reads its report vars only for a VCBC count or
+    to collect matches. A column no later instruction reads leaves the
+    frontier at the next ENU (a distributed step's rebalancer then does
+    not move it)."""
     live: List[frozenset] = [frozenset()] * (len(plan.instrs) + 1)
     acc: frozenset = frozenset()
     for i in range(len(plan.instrs) - 1, -1, -1):
-        acc = acc | frozenset(v for v in plan.instrs[i].uses()
-                              if v[0] != "op")
+        ins = plan.instrs[i]
+        vs = list(ins.operands[2:4] if ins.op == TRC else ins.operands)
+        vs += [v for _, v in ins.filters]
+        if ins.op == RES and (plan.vcbc or collect_matches):
+            vs += list(ins.report)
+        acc = acc | frozenset(v for v in vs if v[0] != "op")
         live[i] = acc
     return live
 
@@ -308,7 +318,7 @@ def build_enumerator(plan: Plan,
     distributed engine's frontier rebalancer (core/engine_dist.py).
     """
     has_universe = check_jit_supported(plan)
-    live = _liveness(plan)
+    live = _liveness(plan, collect_matches)
     n_enu = sum(1 for ins in plan.instrs if ins.op == ENU)
     if len(caps) != n_enu:
         raise ValueError(f"need {n_enu} caps, got {len(caps)}")
@@ -377,6 +387,8 @@ def build_enumerator(plan: Plan,
                 env, valid, ov = _expand(env, valid, cand, ins.target,
                                          caps[enu_i], live[ip + 1], sentinel,
                                          compaction=compaction)
+                if ins.target not in live[ip + 1]:
+                    del env[ins.target]         # read by no later instruction
                 overflow = overflow + ov
                 if post_expand is not None:
                     env, valid = post_expand(env, valid)

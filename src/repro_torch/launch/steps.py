@@ -31,6 +31,7 @@ run under the reference's layout for the cell:
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Tuple
@@ -72,7 +73,6 @@ class CellProgram:
 def tensors_of(obj) -> list:
     """The tensors in ``obj``: through dicts, lists, tuples (named ones
     too) and dataclasses."""
-    import dataclasses
     if isinstance(obj, torch.Tensor):
         return [obj]
     if isinstance(obj, dict):
@@ -152,11 +152,23 @@ def _microbatch(t, i: int, mb: int):
                               t.placements, run_check=False)
 
 
-def _accumulating_step(model, loss_fn, opt_cfg, mb: int, decay):
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A metric as every rank holds it: a DTensor's partial sums reduced
+    (the reference's replicated outputs)."""
+    if type(t).__name__ != "DTensor":
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+
+
+def _accumulating_step(model, loss_fn, opt_cfg, mb: int, decay,
+                       report=()):
     """``step(opt_state, batch)``: gradients summed in f32 over ``mb``
     microbatches, each laid out as its parameter first (a partial sum
     reduced, as FSDP reduce-scatters), and averaged, then one AdamW step
-    in place."""
+    in place. It returns the reference's metrics, whole on every rank:
+    the mean loss, the loss function's metrics named in ``report`` (the
+    last microbatch's) and the optimizer's."""
     def step(opt_state, batch):
         params = dict(model.named_parameters())
         gsum: Dict[str, torch.Tensor] = {}
@@ -165,7 +177,7 @@ def _accumulating_step(model, loss_fn, opt_cfg, mb: int, decay):
             mbt = {k: _microbatch(v, i, mb) for k, v in batch.items()} \
                 if mb > 1 else batch
             model.zero_grad(set_to_none=True)
-            loss, _ = loss_fn(model, mbt)
+            loss, lm = loss_fn(model, mbt)
             loss.backward()
             for k, p in params.items():
                 g = p.grad
@@ -180,7 +192,8 @@ def _accumulating_step(model, loss_fn, opt_cfg, mb: int, decay):
         with torch.no_grad():
             _, new_o, om = adamw_update(opt_cfg, grads, opt_state, params,
                                         decay=decay)
-        return new_o, {"loss": lsum / mb, **om}
+        return new_o, {"loss": _whole(lsum / mb),
+                       **{k: _whole(lm[k].detach()) for k in report}, **om}
     return step
 
 
@@ -210,14 +223,17 @@ def _lm_cell(spec: ArchSpec, shape: str, mesh, multi_pod: bool,
         pspecs = lm_param_specs(shapes)
     pspecs = sanitize(pspecs, shapes, ms)
     ispecs = spec.input_specs(shape)
-    if sp.kind in ("lm_train", "lm_prefill") and \
-            sp.dims["batch"] % ctx.dp_size:
+    padded = sp.kind in ("lm_train", "lm_prefill") and \
+        sp.dims["batch"] % ctx.dp_size
+    if padded:
         # a batch the dp ranks do not divide is padded to a multiple of
-        # them, as GSPMD pads it: rank 0 holds ceil(batch / dp) rows
+        # them, as GSPMD pads it: rank 0 holds ceil(batch / dp) rows, and
+        # the padding rows take no expert slot (one microbatch)
         rows = -(-sp.dims["batch"] // ctx.dp_size) * ctx.dp_size
         ispecs = {k: torch.empty((rows,) + tuple(v.shape[1:]),
                                  dtype=v.dtype, device="meta")
                   for k, v in ispecs.items()}
+        ctx = dataclasses.replace(ctx, rows=sp.dims["batch"])
     if fsdp2d:
         fa = flat_axes(multi_pod)
         bspecs = {k: (fa,) + (None,) * (v.ndim - 1)
@@ -245,7 +261,7 @@ def _lm_cell(spec: ArchSpec, shape: str, mesh, multi_pod: bool,
                   "v": sanitize(ospecs["v"], shapes, ms)}
         opt = _opt_state(params, ospecs, mesh, device)
         meta["sharding_mode"] = sharding_mode
-        mb = int(sp.dims.get("microbatches", 4))
+        mb = 1 if padded else int(sp.dims.get("microbatches", 4))
         mb = max(1, min(mb, sp.dims["batch"] // max(ctx.dp_size, 1)))
         meta["microbatches"] = mb
         step = _accumulating_step(
@@ -290,7 +306,6 @@ def _lm_cell(spec: ArchSpec, shape: str, mesh, multi_pod: bool,
 
 def _gnn_cell(spec: ArchSpec, shape: str, mesh, multi_pod: bool,
               device) -> CellProgram:
-    import dataclasses
     import torch.distributed as dist
     from ..models.gnn import gnn_decay_mask, init_gnn_params
     from ..models.gnn_dist import build_dist_loss, make_grid, reduce_grads
@@ -356,13 +371,12 @@ def _gnn_cell(spec: ArchSpec, shape: str, mesh, multi_pod: bool,
 
 def _pooled_dist_loss(cfg, n_total: int, grid):
     """``gnn_dist.build_dist_loss`` for graph classification over whole
-    node blocks (``n_model == 1``): each rank pools its own graphs'
-    nodes after the layers, then the loss is the distributed one."""
-    import torch.distributed as dist
+    node blocks (``n_model == 1``): every rank pools every graph's nodes
+    after the layers (node state is whole on every rank) and computes
+    the loss alike."""
     from ..models.gnn import graph_index, masked_loss_sum, node_states, \
         scatter_sum
-    from ..models.gnn_dist import GridAggregation, _SumReplicated, \
-        all_reduce
+    from ..models.gnn_dist import GridAggregation
     if grid.n_model != 1:
         raise ValueError("graph pooling needs whole node blocks")
 
@@ -371,10 +385,7 @@ def _pooled_dist_loss(cfg, n_total: int, grid):
         h = node_states(model, batch, GridAggregation(ix, grid))
         h = scatter_sum(h, batch["graph_ids"], batch["loss_mask"].shape[0])
         num = masked_loss_sum(model.dec(h), batch, cfg.task)
-        with torch.no_grad():
-            den = all_reduce(batch["loss_mask"].float().sum(),
-                             grid.model, dist.ReduceOp.SUM).clamp(min=1.0)
-        loss = _SumReplicated.apply(num / den / grid.n_data, grid.group)
+        loss = num / batch["loss_mask"].float().sum().clamp(min=1.0)
         return loss, {"loss": loss}
     return loss_fn
 
@@ -414,7 +425,7 @@ def _rec_cell(spec: ArchSpec, shape: str, mesh, multi_pod: bool,
         opt = _opt_state(params, ospecs, mesh, device)
         step = _accumulating_step(
             model, lambda m, b: bst_loss(m, b, ctx=ctx), AdamWConfig(), 1,
-            bst_decay_mask(shapes))
+            bst_decay_mask(shapes), report=("acc",))
         return CellProgram(f"{spec.name}:{shape}", step, (opt, batch),
                            dict(specs, opt=ospecs), meta, (model,))
     if sp.kind == "rec_serve":

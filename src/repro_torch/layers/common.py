@@ -34,6 +34,9 @@ class ShardCtx:
     mesh: Any = None       # a torch DeviceMesh, or None
     dp: Axis = None        # batch axes, e.g. ("pod", "data") or "data"
     tp: Axis = None        # model axis
+    #: the batch's real rows when it was padded to a multiple of the dp
+    #: ranks (the rows past them are padding); None: every row is real
+    rows: Optional[int] = None
 
     def shard(self, x: torch.Tensor, *axes: Axis) -> torch.Tensor:
         """``x`` laid out as ``axes`` (one entry per dim): a no-op without
@@ -114,16 +117,6 @@ class ShardCtx:
         return axis_size(self.dp, mesh_shape(self.mesh))
 
 
-def keep_layout(x: torch.Tensor) -> torch.Tensor:
-    """A DTensor ``x`` as it is, whose gradient is laid out as ``x`` on
-    its way back (DTensor hands a reduction's gradient back replicated,
-    and its backward then fills global-size tensors)."""
-    from torch.distributed.tensor import DTensor
-    return DTensor.from_local(x.to_local(), x.device_mesh, x.placements,
-                              run_check=False, shape=x.shape,
-                              stride=x.stride())
-
-
 def merge_heads(x: torch.Tensor) -> torch.Tensor:
     """``[B, T, H, d] -> [B, T, H * d]``. A DTensor is laid out over its
     batch dim alone and reshaped on its local shard, so that its gradient
@@ -174,14 +167,6 @@ class _AllReduce(torch.autograd.Function):
             None, None
 
 
-def sum_over(x: torch.Tensor, mesh, dims) -> torch.Tensor:
-    """The sum of ``x`` over the ranks of the mesh dims ``dims``, where
-    every rank then computes alike from the sum but holds only its own
-    part of the result's gradient (a partial sum): the backward sums the
-    gradient too."""
-    return _AllReduce.apply(x, mesh, tuple(dims), True, True)
-
-
 def sum_partials_over(x: torch.Tensor, mesh, dims) -> torch.Tensor:
     """The sum of partial products ``x`` over the ranks of the mesh dims
     ``dims``, where every rank then computes alike from the sum and holds
@@ -194,34 +179,6 @@ def sum_grad_over(x: torch.Tensor, mesh, dims) -> torch.Tensor:
     """Identity; the gradient is summed over the ranks of the mesh dims
     ``dims`` (each holds only its own part of it)."""
     return _AllReduce.apply(x, mesh, tuple(dims), False, True)
-
-
-def mean_over(x: torch.Tensor, mesh, dims) -> torch.Tensor:
-    """The mean of ``x`` over the ranks of the mesh dims ``dims``, used
-    alike on every rank: each rank's share takes its gradient over the
-    rank count."""
-    return sum_partials_over(x, mesh, dims) / math.prod(
-        mesh.shape[i] for i in dims)
-
-
-class AllGather(torch.autograd.Function):
-    """All-gather of local tensors along ``dim`` over mesh dim
-    ``mesh_dim``, where every rank of the mesh dim then computes the same
-    thing from the gathered tensor. Backward: this rank's block of its
-    own gradient."""
-
-    @staticmethod
-    def forward(ctx, x, dim, mesh, mesh_dim):
-        import torch.distributed._functional_collectives as funcol
-        ctx.args = (dim, mesh, mesh_dim)
-        return funcol.wait_tensor(
-            funcol.all_gather_tensor(x, dim, (mesh, mesh_dim)))
-
-    @staticmethod
-    def backward(ctx, g):
-        dim, mesh, mesh_dim = ctx.args
-        n, i = mesh.shape[mesh_dim], mesh.get_coordinate()[mesh_dim]
-        return g.chunk(n, dim=dim)[i].contiguous(), None, None, None
 
 
 def row_offset(placements, mesh, n_rows: int) -> int:
@@ -280,6 +237,44 @@ def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+def _sharded_token_losses(logits: torch.Tensor, labels: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each position's ``lse - logit[label]`` and its ``lse`` (DTensors
+    laid out as the logits' rows) of f32 DTensor logits ``[..., V]``, on
+    each rank's local block: where the vocab is split over mesh dims, the
+    row max, the sum of exponentials and the label's logit are each one
+    all-reduce over them (the sums' gradients whole on every rank, as
+    every rank then computes alike from them), and nothing of the logits'
+    size moves, forward or backward."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, pl = logits.device_mesh, logits.placements
+    last = logits.ndim - 1
+    vdims = tuple(i for i, p in enumerate(pl)
+                  if isinstance(p, Shard) and p.dim == last)
+    rows = [Replicate() if i in vdims else p for i, p in enumerate(pl)]
+    lg = logits.to_local()
+    lab = labels.redistribute(mesh, rows).to_local().long()
+    first = 0
+    for i in vdims:                     # this rank's first vocab id
+        first = first * mesh.shape[i] + mesh.get_coordinate()[i]
+    n = lg.shape[-1]
+    m = lg.detach().amax(dim=-1)
+    for i in vdims:
+        m = funcol.wait_tensor(funcol.all_reduce(m, "max", (mesh, i)))
+    se = sum_partials_over((lg - m[..., None]).exp().sum(dim=-1), mesh,
+                           vdims)
+    lse = se.log() + m
+    idx = lab - first * n
+    hit = (idx >= 0) & (idx < n)
+    ll = torch.gather(lg, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+    ll = sum_partials_over(torch.where(hit, ll, 0.0), mesh, vdims)
+
+    def whole(t):
+        return DTensor.from_local(t, mesh, rows, run_check=False)
+    return whole(lse - ll), whole(lse)
+
+
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           z_loss: float = 0.0) -> torch.Tensor:
     """Mean cross entropy over all positions, in f32: ``logsumexp`` minus
@@ -288,17 +283,7 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     labels [...] integer ids."""
     logits = logits.float()
     if _is_dtensor(logits):
-        # over a vocab-sharded DTensor both terms are sums over the vocab's
-        # ranks (partial sums, then an all-reduce): DTensor's logsumexp and
-        # gather would gather the logits whole, and their backward would
-        # fill a tensor of the global batch's size
-        m = logits.detach().amax(dim=-1, keepdim=True)
-        lse = (logits - m).exp().sum(dim=-1).log() + m[..., 0]
-        vocab = torch.arange(logits.shape[-1], device=logits.device)
-        hit = (vocab == labels[..., None].long()).redistribute(
-            logits.device_mesh, logits.placements)     # the logits' layout
-        ll = torch.where(hit, logits, 0.0).sum(dim=-1)
-        tok = keep_layout(lse - ll)
+        tok, lse = _sharded_token_losses(logits, labels)
     else:
         lse = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]

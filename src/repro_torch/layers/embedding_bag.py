@@ -18,6 +18,8 @@ from typing import Optional
 
 import torch
 
+from .common import NO_SHARD, ShardCtx
+
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
                      pad_id: Optional[int] = None) -> torch.Tensor:
@@ -103,11 +105,19 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
 
 
 def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
-                        mode: str = "mean",
-                        pad_id: Optional[int] = None) -> torch.Tensor:
+                        mode: str = "mean", pad_id: Optional[int] = None,
+                        ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     """Dense-rectangular bags: ids ``[B, L]`` -> ``[B, dim]``, the sum
-    (``mode="sum"``) or else the mean over the non-pad ids."""
-    rows = embedding_lookup(table, ids, pad_id=pad_id)       # [B, L, d]
+    (``mode="sum"``) or else the mean over the non-pad ids. Under a mesh
+    the looked-up rows (a partial sum over the ranks that split the
+    table's rows) are summed once, laid over ``ctx.dp``, and the bags
+    reduced on whole rows."""
+    if ctx.mesh is not None and type(table).__name__ == "DTensor":
+        rows = ctx.shard(embedding_lookup(table, ids), ctx.dp, None, None)
+        if pad_id is not None:
+            rows = torch.where((ids == pad_id)[..., None], 0.0, rows)
+    else:
+        rows = embedding_lookup(table, ids, pad_id=pad_id)   # [B, L, d]
     s = rows.sum(dim=1)
     if mode == "sum":
         return s

@@ -15,7 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import NO_SHARD, ShardCtx, dense_init, sum_partials_over, swish
+from .common import (NO_SHARD, ShardCtx, dense_init, sum_grad_over,
+                     sum_partials_over, swish)
 
 
 class SwiGLU(nn.Module):
@@ -85,11 +86,11 @@ class MLP(nn.Module):
             return p.redistribute(mesh, pl).to_local(grad_placements=grad)
 
         # a first column-parallel layer reads the rank's block of the
-        # weight: x's gradient is then a partial sum over tp
-        col0 = self._col_parallel(0, tpd)
-        h = x.to_local(grad_placements=[
-            Partial() if col0 and j in tpd else p
-            for j, p in enumerate(rows)])
+        # weight: x's gradient is then a partial sum over tp, summed here
+        # (once, on the tower's input)
+        h = x.to_local()
+        if self._col_parallel(0, tpd):
+            h = sum_grad_over(h, mesh, tuple(tpd))
         split = False                     # h's width: this rank's block
         for i in range(self.n_layers):
             w, b = getattr(self, f"w{i}"), getattr(self, f"b{i}")

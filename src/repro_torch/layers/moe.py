@@ -57,8 +57,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import (NO_SHARD, AllGather, ShardCtx, _is_dtensor,
-                     dense_init, mean_over, sum_grad_over, sum_over, swish)
+from .common import (NO_SHARD, ShardCtx, _is_dtensor,
+                     dense_init, row_offset, sum_grad_over,
+                     sum_partials_over, swish)
 from .mlp import SwiGLU
 
 
@@ -114,14 +115,14 @@ class _GatherSlots(torch.autograd.Function):
 
 class _CombineRows(torch.autograd.Function):
     """``out[t] = sum_c y[rows[t, c]] * gates[t, c]`` (each product in
-    y's dtype, the sum in f32, cast once); backward by the inverse map
-    ``slot_asg`` (see the module's header)."""
+    y's dtype, the sum in f32, cast once to ``dtype``, y's unless given);
+    backward by the inverse map ``slot_asg`` (see the module's header)."""
 
     @staticmethod
-    def forward(ctx, y, gates, rows, slot_asg):
+    def forward(ctx, y, gates, rows, slot_asg, dtype=None):
         ctx.save_for_backward(y, gates, rows, slot_asg)
         yk = y[rows] * gates.to(y.dtype)[..., None]     # [n_tok, k, D]
-        return yk.sum(dim=1, dtype=torch.float32).to(y.dtype)
+        return yk.sum(dim=1, dtype=torch.float32).to(dtype or y.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -132,7 +133,7 @@ class _CombineRows(torch.autograd.Function):
         gapad = torch.cat([ga.reshape(-1, d), ga.new_zeros((1, d))])
         dy = gapad[slot_asg]                                # [E * cap + 1, D]
         dgates = (g[:, None, :] * y[rows]).sum(dim=-1).to(gates.dtype)
-        return dy, dgates, None, None
+        return dy, dgates, None, None, None
 
 
 def gather_plain(xf: torch.Tensor, disp: Dispatch) -> torch.Tensor:
@@ -157,25 +158,120 @@ def expert_products(xin: torch.Tensor, w_gate: torch.Tensor,
     return torch.bmm(h, w_down)
 
 
-class _AllToAll(torch.autograd.Function):
-    """Over mesh dim ``mesh_dim`` (``n`` ranks): ``x`` split into ``n``
-    blocks along ``split``, block ``j`` sent to rank ``j``, the blocks
-    received concatenated along ``cat`` (in rank order). Backward: the
-    inverse exchange."""
+class _SlotsToOwner(torch.autograd.Function):
+    """Over mesh dim ``mesh_dim``: the sum of the ranks' ``x`` (each rank
+    its own slots, zeros in the others'), this rank's block of dim
+    ``dim`` of it (a reduce-scatter). Backward: the gradient's blocks
+    gathered whole (an all-gather), since every rank's slots take their
+    gradient from every block."""
 
     @staticmethod
-    def forward(ctx, x, mesh, mesh_dim, split, cat):
-        ctx.args = (mesh, mesh_dim, split, cat)
-        return _all_to_all(x, mesh, mesh_dim, split, cat)
+    def forward(ctx, x, mesh, mesh_dim, dim):
+        import torch.distributed._functional_collectives as funcol
+        ctx.args = (mesh, mesh_dim, dim)
+        return funcol.wait_tensor(funcol.reduce_scatter_tensor(
+            x.contiguous(), "sum", dim, (mesh, mesh_dim)))
 
     @staticmethod
     def backward(ctx, g):
-        mesh, mesh_dim, split, cat = ctx.args
-        return _all_to_all(g, mesh, mesh_dim, cat, split), None, None, \
-            None, None
+        import torch.distributed._functional_collectives as funcol
+        mesh, mesh_dim, dim = ctx.args
+        return funcol.wait_tensor(funcol.all_gather_tensor(
+            g.contiguous(), dim, (mesh, mesh_dim))), None, None, None
+
+
+class _SlotsFromOwner(torch.autograd.Function):
+    """The inverse of :class:`_SlotsToOwner`: the ranks' blocks of dim
+    ``dim`` gathered whole (an all-gather), of which each rank reads only
+    its own slots. Backward: the sum of the ranks' gradients, this rank's
+    block of it (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, mesh_dim, dim):
+        import torch.distributed._functional_collectives as funcol
+        ctx.args = (mesh, mesh_dim, dim)
+        return funcol.wait_tensor(funcol.all_gather_tensor(
+            x.contiguous(), dim, (mesh, mesh_dim)))
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed._functional_collectives as funcol
+        mesh, mesh_dim, dim = ctx.args
+        return funcol.wait_tensor(funcol.reduce_scatter_tensor(
+            g.contiguous(), "sum", dim, (mesh, mesh_dim))), None, None, None
+
+
+def _own_rows(rows: torch.Tensor, first: int, n: int) -> torch.Tensor:
+    """Rows of the flattened ``[E * cap]`` slots (the drop row ``E *
+    cap`` too) as rows of a rank's ``n`` slots from row ``first``, ``n``
+    (its zero row) for any other."""
+    local = rows - first
+    return torch.where((local >= 0) & (local < n), local, n)
+
+
+def _inverse(rows: torch.Tensor, n: int) -> torch.Tensor:
+    """``[n + 1]``: each of ``n`` slot rows' assignment ``token * k +
+    choice`` by ``rows [n_tok, k]`` (each slot row taken at most once),
+    ``n_tok * k`` for an empty one and for the zero row ``n``; written
+    once each, as :meth:`MoE.dispatch` writes it."""
+    flat = rows.reshape(-1)
+    none = flat.shape[0]
+    asg = torch.arange(none, device=flat.device)
+    inv = torch.full((n + none,), none, dtype=torch.long,
+                     device=flat.device)
+    inv[torch.where(flat < n, flat, n + asg)] = asg
+    inv = inv[:n + 1]
+    inv[n] = none
+    return inv
+
+
+class _SwapBlocks(torch.autograd.Function):
+    """Over mesh dim ``mesh_dim`` (``n`` ranks): ``x``'s axis ``axis``
+    (``n`` blocks of rows, block ``j`` for rank ``j``) sent by block, so
+    that the axis then holds the ``n`` ranks' blocks of this rank's rows
+    (an all-to-all). Its own inverse: the backward is the same swap."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, mesh_dim, axis):
+        ctx.args = (mesh, mesh_dim, axis)
+        return _swap(x, mesh, mesh_dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _swap(g, *ctx.args), None, None, None
+
+
+def _swap(x, mesh, mesh_dim: int, axis: int):
+    import torch.distributed._functional_collectives as funcol
+    send = x.movedim(axis, 0).contiguous()
+    got = funcol.wait_tensor(funcol.all_to_all_single(
+        send, None, None, (mesh, mesh_dim)))
+    return got.view(send.shape).movedim(0, axis)
+
+
+class _ExpertsToOwner(torch.autograd.Function):
+    """Over mesh dim ``mesh_dim`` (``n`` ranks): ``x [n * e_loc, ...]``,
+    every expert's block of dim ``dim``, -> ``[e_loc, ...]``, this
+    rank's experts whole along ``dim`` (an all-to-all: expert chunk ``j``
+    goes to rank ``j``, the blocks received concatenated in rank order).
+    Backward: the inverse all-to-all, each rank's block of the gradient
+    of every expert."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, mesh_dim, dim):
+        ctx.args = (mesh, mesh_dim, dim)
+        return _all_to_all(x, mesh, mesh_dim, 0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, mesh_dim, dim = ctx.args
+        return _all_to_all(g, mesh, mesh_dim, dim, 0), None, None, None
 
 
 def _all_to_all(x, mesh, mesh_dim: int, split: int, cat: int):
+    """``x`` in ``n`` chunks along ``split``, chunk ``j`` sent to rank
+    ``j`` of mesh dim ``mesh_dim``; the chunks received concatenated
+    along ``cat`` in rank order."""
     import torch.distributed._functional_collectives as funcol
     n = mesh.shape[mesh_dim]
     send = torch.stack(x.chunk(n, dim=split)).contiguous()
@@ -218,21 +314,35 @@ class MoE(nn.Module):
         return Routing(gates / gates.sum(dim=-1, keepdim=True), experts,
                        probs)
 
-    def dispatch(self, experts: torch.Tensor) -> Dispatch:
+    def dispatch(self, experts: torch.Tensor, cap: int = None,
+                 offset: torch.Tensor = None,
+                 valid: torch.Tensor = None) -> Dispatch:
         """The slot table and each assignment's row for ``experts``
         [n_tok, k]. The assignments, token-major, are sorted stably by
         expert; no host synchronisation (a dropped assignment's write
-        goes to a spare entry that is cut off)."""
+        goes to a spare entry that is cut off).
+
+        Under a mesh (:meth:`_forward_sharded`) ``n_tok`` is a rank's
+        rows of a larger token set: ``cap`` is then that set's capacity,
+        ``offset`` [E] the slots of each expert that the rows before this
+        rank's took (an assignment's slot is its rank among this rank's
+        assignments to its expert plus the expert's offset), and rows
+        where ``valid`` [n_tok] is False (padding) take no slot."""
         n_tok, k = experts.shape
         e = self.router.shape[1]
-        cap = capacity(n_tok, k, e, self.capacity_factor)
+        if cap is None:
+            cap = capacity(n_tok, k, e, self.capacity_factor)
         flat = experts.reshape(-1)
+        if valid is not None:          # padding sorts last, past expert e-1
+            flat = torch.where(valid.repeat_interleave(k), flat, e)
         order = torch.sort(flat, stable=True).indices
         se = flat[order]
         first = torch.searchsorted(se, se, side="left")
         asg = torch.arange(n_tok * k, device=flat.device)
         slot = asg - first
-        keep = slot < cap
+        if offset is not None:
+            slot = slot + torch.cat([offset, offset.new_zeros(1)])[se]
+        keep = (slot < cap) & (se < e)
         dest = torch.where(keep, se * cap + slot, e * cap)
         # a dropped assignment's write goes to a spare entry of its own, so
         # every index is written once (the deterministic index_put_ walks
@@ -247,6 +357,21 @@ class MoE(nn.Module):
         rows[order] = dest                  # order is a permutation
         return Dispatch((slot_asg[:e * cap] // k).view(e, cap),
                         rows.view(n_tok, k), cap, slot_asg)
+
+    @staticmethod
+    def expert_counts(experts: torch.Tensor, n_experts: int,
+                      valid: torch.Tensor = None) -> torch.Tensor:
+        """[E] int64: how many of the rows' assignments chose each expert
+        (rows where ``valid`` is False left out). By a sort and a search,
+        no atomics."""
+        flat = experts.reshape(-1)
+        if valid is not None:
+            flat = torch.where(valid.repeat_interleave(experts.shape[1]),
+                               flat, n_experts)
+        bounds = torch.searchsorted(
+            torch.sort(flat).values,
+            torch.arange(n_experts + 1, device=flat.device), side="left")
+        return bounds[1:] - bounds[:-1]
 
     def aux_loss(self, r: Routing) -> torch.Tensor:
         """Switch load balance: ``w * E * sum_e mean_prob_e *
@@ -295,23 +420,41 @@ class MoE(nn.Module):
 
     def _forward_sharded(self, x: torch.Tensor, ctx: ShardCtx
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The layer over a mesh (DTensor x, parameters and result).
+        """The layer over a mesh (DTensor x, parameters and result): the
+        function of :meth:`forward` on the whole batch, drops included.
 
-        Each rank routes and dispatches its own tokens (its block of the
-        batch over the ``dp`` axes; the router gathered whole), so the
-        capacity is the local token count's, as in GShard's local
-        dispatch (the reference sorts the global token set under GSPMD).
-        The experts then run as the reference's layout has them: the
-        slots ``[E, cap, D]`` with their experts over ``tp`` (``E``
-        padded to a multiple of tp, as GSPMD pads), every dp rank's
-        slots on each rank, and the expert weights as FSDP shards them,
-        over ``D`` on the dp axes, never gathered: all-to-alls over dp
-        hand each rank its block of ``D`` of every dp rank's slots, the
-        gate and up products are partial sums over dp (all-reduced), the
-        down product gives the rank's block of ``D``, and the inverse
-        all-to-alls bring each rank its own slots whole. The experts'
-        outputs come back over tp for a local combine. The aux loss is
-        the mean over the ``dp`` ranks of each one's local loss."""
+        Each rank routes its own tokens (its block of the batch over the
+        ``dp`` axes; the router gathered whole). The capacity is the one
+        of the batch's ``N`` real tokens (``ctx.rows`` real rows when the
+        batch was padded to a multiple of the dp ranks: the padding rows
+        take no slot), and each expert's slots are filled in the order of
+        the tokens, so of the dp ranks: an assignment's slot is its rank
+        among this rank's assignments to its expert plus the count of
+        assignments to that expert on the dp ranks before this one (an
+        all-gather of every rank's ``[E]`` counts over dp). Each rank's
+        ``[e_loc, cap, D]`` buffer of its experts then holds its own
+        tokens in their slots and zeros elsewhere, and the dp ranks'
+        buffers sum to the no-mesh dispatch's slots of those experts.
+
+        The experts run as the reference's layout has them: over ``tp``
+        (``E`` padded to a multiple of tp, as GSPMD pads), and the expert
+        weights as FSDP shards them, over ``D`` on the dp axes, never
+        gathered there (stored with their ``F`` over tp, when tp does not
+        divide ``E``, each rank receives its experts' ``F`` blocks by an
+        all-to-all). A reduce-scatter over dp sums the ranks' slots of
+        this rank's experts and hands it its block of ``D``; the gate and
+        up products are partial sums over dp (all-reduced), and the down
+        product gives the rank's block of ``D`` of every slot (its
+        gradient reaches the hidden state as a partial sum, all-reduced
+        once). The combine runs where the slots are: with every dp rank's
+        rows and gates gathered, each rank sums its experts' share of
+        every token's output on its block of ``D`` (in f32), all-to-alls
+        over dp hand each token's blocks to its rank, and an all-reduce
+        over tp sums the experts' shares, cast once. Nothing of the
+        ``[E, cap, D]`` size is gathered whole. The aux loss is the
+        reference's, of the whole batch: the router probabilities' ``[E]``
+        sums all-reduced over dp, the counts from the all-gathered ones."""
+        import torch.distributed._functional_collectives as funcol
         from torch.distributed.tensor import DTensor, Partial, Replicate, \
             Shard
         mesh = ctx.mesh
@@ -322,6 +465,13 @@ class MoE(nn.Module):
         tp_dims = list(ctx.tp_dims())
         xl = x.to_local()
         xf = xl.reshape(-1, d)
+        e = self.router.shape[1]
+        n_rows = b if ctx.rows is None else ctx.rows
+        valid = None
+        if n_rows < b:
+            first = row_offset(x.placements, mesh, xl.shape[0])
+            valid = (torch.arange(xl.shape[0], device=xf.device) + first
+                     < n_rows).repeat_interleave(t)
         # the router's gradient from this rank's tokens: a partial sum over
         # the dp dims (the tp ranks hold the same tokens)
         router = self.router.redistribute(
@@ -329,49 +479,92 @@ class MoE(nn.Module):
                 Partial() if i in dp_dims else Replicate()
                 for i in range(mesh.ndim)])
         r = self.route(xf, router)
-        disp = self.dispatch(r.experts)
-        e = disp.slot_tok.shape[0]
+        n_real = n_rows * t
+        counts = self.expert_counts(r.experts, e, valid)[None]
+        for i in reversed(dp_dims):        # [dp, E], dp ranks major first
+            counts = funcol.wait_tensor(funcol.all_gather_tensor(
+                counts, 0, (mesh, i)))
+        before = counts[:row_offset(x.placements, mesh, 1)].sum(dim=0)
+        disp = self.dispatch(
+            r.experts, capacity(n_real, self.top_k, e, self.capacity_factor),
+            before, valid)
         n_tp, t_idx = ctx.tp_block()
         e_loc = -(-e // n_tp)
         own = slice(min(t_idx * e_loc, e), min((t_idx + 1) * e_loc, e))
+        n_own, cap = own.stop - own.start, disp.cap
         # this rank's experts see only their slots: their part of the
         # tokens' gradient is summed over tp (the router's part is whole)
-        xs = self.gather(sum_grad_over(xf, mesh, tp_dims), disp)[own]
-        # every dp rank's slots, this rank's block of D (major dims first)
+        xs = _GatherSlots.apply(sum_grad_over(xf, mesh, tp_dims),
+                                disp.slot_tok[own],
+                                _own_rows(disp.rows, own.start * cap,
+                                          n_own * cap))
+        # every dp rank's tokens in their slots, this rank's block of D
+        # (major dims first)
         for i in dp_dims:
-            xs = _AllToAll.apply(xs, mesh, i, 2, 1)
+            xs = _SlotsToOwner.apply(xs, mesh, i, 2)
 
         # the weights as FSDP lays them out: this rank's experts, its block
-        # of D; each gradient whole over its D block (every dp rank's
-        # slots are here), a partial sum over tp (its own experts)
+        # of D; each gradient whole over its D block (every slot is here)
+        # and in the weight's own layout. Experts the tp ranks do not
+        # divide are stored with their F split over tp instead: each rank
+        # then receives its experts' F blocks (an all-to-all over tp, the
+        # experts padded to n_tp * e_loc)
         def local(w, ddim):
-            pl = [Shard(ddim) if i in dp_dims else Replicate()
-                  for i in range(mesh.ndim)]
-            return w.redistribute(mesh, pl).to_local(grad_placements=[
-                p if i in dp_dims else Partial()
-                for i, p in enumerate(pl)])[own]
+            pl = [Shard(ddim) if i in dp_dims else p if i in tp_dims
+                  else Replicate() for i, p in enumerate(w.placements)]
+            wl = w.redistribute(mesh, pl).to_local(grad_placements=[
+                Partial() if i in tp_dims and not isinstance(p, Shard)
+                else p for i, p in enumerate(pl)])
+            for i in tp_dims:
+                if not isinstance(pl[i], Shard):      # whole: slice
+                    wl = wl[own]
+                elif pl[i].dim != 0:                  # F split: receive
+                    if wl.shape[0] < n_tp * e_loc:
+                        wl = torch.cat([wl, wl.new_zeros(
+                            (n_tp * e_loc - wl.shape[0],) + wl.shape[1:])])
+                    wl = _ExpertsToOwner.apply(wl, mesh, i, pl[i].dim)
+            return wl[:own.stop - own.start]
         wg, wu, wd = local(self.w_gate, 1), local(self.w_up, 1), \
             local(self.w_down, 2)
-        h = swish(sum_over(torch.bmm(xs, wg), mesh, dp_dims)) * \
-            sum_over(torch.bmm(xs, wu), mesh, dp_dims)
-        y = torch.bmm(h, wd)
-        for i in reversed(dp_dims):            # this rank's slots, whole
-            y = _AllToAll.apply(y, mesh, i, 1, 2)
-        if y.shape[0] < e_loc:
-            y = torch.cat([y, y.new_zeros((e_loc - y.shape[0],)
-                                          + y.shape[1:])])
-        for i in reversed(tp_dims):
-            y = AllGather.apply(y, 0, mesh, i)
-        y = torch.cat([y[:e].flatten(0, 1), y.new_zeros((1, d))])
-        out = self.combine(y, r.gates, disp).view(xl.shape)
+        # every dp rank computes h alike from the summed products, and the
+        # down product's gradient reaches it as a partial sum over dp:
+        # summed once, on h
+        h = swish(sum_partials_over(torch.bmm(xs, wg), mesh, dp_dims)) * \
+            sum_partials_over(torch.bmm(xs, wu), mesh, dp_dims)
+        y = torch.bmm(sum_grad_over(h, mesh, dp_dims), wd)
+        # the combine, where the slots are: every dp rank's routing here
+        # (the gates' gradient summed back over tp and dp), this rank's
+        # experts' share of every token's output on this rank's block of D
+        # (in f32), then each token's blocks sent to its dp rank and the
+        # experts' shares summed over tp
+        rows, gates = disp.rows, sum_grad_over(r.gates, mesh, tp_dims)
+        for i in reversed(dp_dims):
+            rows = funcol.wait_tensor(funcol.all_gather_tensor(
+                rows, 0, (mesh, i)))
+            gates = _SlotsFromOwner.apply(gates, mesh, i, 0)
+        rows = _own_rows(rows, own.start * cap, n_own * cap)
+        part = _CombineRows.apply(
+            torch.cat([y.flatten(0, 1), y.new_zeros((1, y.shape[2]))]),
+            gates, rows, _inverse(rows, n_own * cap), torch.float32)
+        part = part.view([mesh.shape[i] for i in dp_dims]
+                         + [xf.shape[0], -1])
+        for j, i in enumerate(dp_dims):
+            part = _SwapBlocks.apply(part, mesh, i, j)
+        part = part.movedim(-2, 0).reshape(xf.shape[0], d)
+        out = sum_partials_over(part, mesh, tp_dims).to(xf.dtype).view(
+            xl.shape)
         out = DTensor.from_local(out, mesh, x.placements, run_check=False)
         if self.shared is not None:
             out = out + self.shared(x, ctx)
-        # the mean over the dp ranks, whole on every rank (a partial
-        # placement would meet the cross entropy's, whose kind of partial
-        # differs between torch versions)
+        # the whole batch's aux, on every rank (a partial placement would
+        # meet the cross entropy's, whose kind of partial differs between
+        # torch versions)
+        probs = r.probs if valid is None else r.probs * valid[:, None]
+        mean_prob = sum_partials_over(probs.sum(dim=0), mesh,
+                                      dp_dims) / n_real
+        mean_count = counts.sum(dim=0).float() / n_real
         aux = DTensor.from_local(
-            mean_over(self.aux_loss(r), mesh, dp_dims), mesh,
+            self.aux_loss_weight * e * (mean_prob * mean_count).sum(), mesh,
             [Replicate()] * mesh.ndim, run_check=False)
         return ctx.shard(out, ctx.dp, None, None), aux
 

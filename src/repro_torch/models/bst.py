@@ -158,7 +158,7 @@ def user_tower(model: BST, hist: torch.Tensor, user_feats: torch.Tensor,
     e_hist = ctx.shard(embedding_lookup(model.item_emb, hist), ctx.dp,
                        None, None)
     e_user = embedding_bag_fixed(model.user_emb, user_feats, mode="mean",
-                                 pad_id=0)
+                                 pad_id=0, ctx=ctx)
     return e_hist, e_user
 
 
@@ -194,7 +194,8 @@ def bst_scores(model: BST, hist: torch.Tensor, target: torch.Tensor,
     """CTR logits [B]. hist [B, L]; target [B]; user_feats [B, W]."""
     b = hist.shape[0]
     e_hist, e_user = user_tower(model, hist, user_feats, ctx)
-    e_tgt = embedding_lookup(model.item_emb, target)[:, None, :]
+    e_tgt = ctx.shard(embedding_lookup(model.item_emb, target), ctx.dp,
+                      None)[:, None, :]
     seq = encode(model, torch.cat([e_hist, e_tgt], dim=1)
                  + model.pos_emb[None], ctx)
     feats = ctx.shard(torch.cat([seq.reshape(b, -1), e_user], dim=-1),

@@ -113,6 +113,18 @@ def layer_towers(cfg: GNNConfig) -> Dict[str, Tuple[int, ...]]:
 #: the LayerNorms of one layer, by kind (a gain ``g`` and a bias ``b``)
 LAYER_NORMS = {"gin": ("ln",), "mgn": ("edge_ln", "node_ln")}
 
+#: the towers and norms of a layer that run on edges (the rest run on
+#: nodes), and the edge encoder
+EDGE_MODULES = {"pre", "phi_e", "phi_x", "edge_mlp", "edge_ln"}
+
+
+def is_edge_param(name: str) -> bool:
+    """Whether the :class:`GNN` parameter ``name`` is applied to edges:
+    under an edge partition its gradient is then a partial sum."""
+    parts = name.split(".")
+    return parts[0] == "enc_e" or (parts[0] == "layers"
+                                   and parts[2] in EDGE_MODULES)
+
 
 # --------------------------------------------------------------------------
 # Message-passing primitives over sorted segments

@@ -55,7 +55,7 @@ import torch
 import torch.distributed as dist
 
 from .gnn import GNN, Aggregation, GNNConfig, GraphIndex, graph_index, \
-    in_degree, masked_loss_sum, node_states
+    in_degree, is_edge_param, masked_loss_sum, node_states
 
 
 @dataclass
@@ -186,6 +186,60 @@ class _SumReplicated(torch.autograd.Function):
         return g, None
 
 
+class _FromReplicated(torch.autograd.Function):
+    """Node state every rank holds whole, read by this rank's edges: the
+    identity, whose gradient (this rank's edges' part) is summed over the
+    group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _ToReplicated(torch.autograd.Function):
+    """This rank's edges' partial ``[N, ...]`` sum, summed over the group
+    into node state every rank holds whole and differentiates alike: the
+    gradient passes through."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ReplicatedExtremum(torch.autograd.Function):
+    """The max or min over every rank's ``[N, d]`` segment partial, whole
+    on every rank. Backward: the (whole) cotangent split evenly among the
+    tied messages of every rank, as the single-device ``scatter_max``
+    splits it."""
+
+    @staticmethod
+    def forward(ctx, msg, seg, how, group):
+        full = all_reduce(seg.reduce(msg, how), group,
+                          dist.ReduceOp.MAX if how == "max"
+                          else dist.ReduceOp.MIN)
+        ctx.seg, ctx.group = seg, group
+        ctx.save_for_backward(msg, full)
+        return full
+
+    @staticmethod
+    def backward(ctx, g):
+        msg, full = ctx.saved_tensors
+        seg = ctx.seg
+        tie = msg == seg.gather(full)
+        cnt = all_reduce(seg.reduce(tie.float(), "sum"), ctx.group)
+        share = seg.gather(g.float() / cnt.clamp(min=1.0))
+        return torch.where(tie, share.to(msg.dtype), 0.0), None, None, None
+
+
 class _BlockExtremum(torch.autograd.Function):
     """The max or min over every rank's ``[N, d]`` segment partial, this
     rank's node block of it. Backward: the whole cotangent, split evenly
@@ -221,21 +275,36 @@ class GridAggregation(Aggregation):
     before the edges read it; a sum is this rank's edge shard's ``[N,
     ...]`` partial, reduce-scattered over "model" and summed over "data";
     max and min are :class:`_BlockExtremum`; the degree is summed as the
-    messages are."""
+    messages are.
+
+    On a grid of one node block (``n_model == 1``) every rank holds the
+    node state whole and computes it alike, as the reference's GSPMD
+    program does with node tensors replicated: a sum or an extremum is
+    all-reduced forward only, the nodes' gradient from this rank's edges
+    is all-reduced where the edges read them, and only the edge towers'
+    gradients are partial sums (:func:`reduce_grads`)."""
 
     def __init__(self, ix: GraphIndex, grid: Grid):
         super().__init__(ix)
         self.grid = grid
+        self.replicated = grid.n_model == 1
 
     def nodes(self, t_blk: torch.Tensor) -> torch.Tensor:
+        if self.replicated:
+            return _FromReplicated.apply(t_blk, self.grid.group)
         return _AllGather.apply(t_blk, self.grid.model)
 
     def sum(self, msg: torch.Tensor) -> torch.Tensor:
+        if self.replicated:
+            return _ToReplicated.apply(super().sum(msg), self.grid.group)
         return _AllReduceSum.apply(
             _ReduceScatter.apply(super().sum(msg), self.grid.model),
             self.grid.data)
 
     def _extremum(self, msg, how):
+        if self.replicated:
+            return _ReplicatedExtremum.apply(msg, self.ix.dst, how,
+                                             self.grid.group)
         return _BlockExtremum.apply(msg, self.ix.dst, how, self.grid)
 
     @cached_property
@@ -243,6 +312,8 @@ class GridAggregation(Aggregation):
         ix, grid = self.ix, self.grid
         with torch.no_grad():
             d = in_degree(ix.dst, ix.n, ix.emask)[:, None]
+            if self.replicated:
+                return all_reduce(d, grid.group).clamp(min=1.0)
             d = reduce_scatter_tiled(d, grid.model)
             return all_reduce(d, grid.data).clamp(min=1.0)
 
@@ -274,9 +345,13 @@ def shard_batch(batch: Mapping[str, np.ndarray], grid: Grid
 def reduce_grads(grid: Grid) -> Callable[[Dict[str, torch.Tensor]],
                                          Dict[str, torch.Tensor]]:
     """The gradient reduction of a training step over the grid: each
-    parameter's shares summed over every rank."""
+    parameter's shares summed over every rank. On a grid of one node
+    block only the edge towers' gradients are shares (every rank holds
+    the node towers' whole)."""
     def reduce(grads):
-        return {k: all_reduce(g, grid.group) for k, g in grads.items()}
+        return {k: all_reduce(g, grid.group)
+                if grid.n_model > 1 or is_edge_param(k) else g
+                for k, g in grads.items()}
     return reduce
 
 
@@ -300,6 +375,9 @@ def build_dist_loss(cfg: GNNConfig, n_total: int, grid: Grid
         ix = graph_index(batch["edge_src"], batch["edge_dst"], n_total)
         out = model.dec(node_states(model, batch, GridAggregation(ix, grid)))
         num = masked_loss_sum(out, batch, cfg.task)
+        if grid.n_model == 1:              # every rank holds every node
+            loss = num / batch["loss_mask"].float().sum().clamp(min=1.0)
+            return loss, {"loss": loss}
         with torch.no_grad():
             den = all_reduce(batch["loss_mask"].float().sum(),
                              grid.model).clamp(min=1.0)

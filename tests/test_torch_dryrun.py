@@ -81,6 +81,34 @@ def test_wire_model_matches_hlo_analysis(kind, rows, group):
     assert set(vars(jhlo.Totals())) <= set(vars(got))
 
 
+@pytest.mark.parametrize("group", [2, 4, 16])
+def test_reduce_scatter_and_all_gather_move_an_all_reduces_wire(group):
+    """The ring model's identity that lets the sharded cells' wire be
+    held to the reference's in total, not by kind: a reduce-scatter of
+    ``B`` bytes to ``B / g`` a rank, then an all-gather back to ``B``,
+    move exactly the wire of one all-reduce of ``B`` (both sides' model:
+    the port's ``collective_bytes`` and the reference's HLO count)."""
+    nbytes = group * 64 * 16 * 4
+    rs_then_ag = oa.Totals()
+    rs_then_ag.add_collective("reduce-scatter", nbytes / group, group)
+    rs_then_ag.add_collective("all-gather", nbytes, group)
+    ar = oa.Totals()
+    ar.add_collective("all-reduce", nbytes, group)
+    assert rs_then_ag.coll_wire_total == ar.coll_wire_total \
+        == 2 * nbytes * (group - 1) / group
+    rows = group * 64
+    ref = {kind: jhlo.analyze(_HLO.format(
+        n=n, r=r, op=kind, ng=max(1, 16 // group), g=group,
+        w=16 if group < 16 else group,
+        extra="" if kind == "all-reduce" else ", dimensions={0}"))
+        for kind, n, r in (("reduce-scatter", rows, rows // group),
+                           ("all-gather", rows // group, rows),
+                           ("all-reduce", rows, rows))}
+    assert ref["reduce-scatter"].coll_wire_total + \
+        ref["all-gather"].coll_wire_total == ref["all-reduce"].coll_wire_total \
+        == ar.coll_wire_total
+
+
 SMOKE_CELLS = [("qwen2-0.5b", "train"), ("qwen2-0.5b", "decode"),
                ("granite-moe-3b-a800m", "train"), ("gin-tu", "full"),
                ("gin-tu", "mol"), ("pna", "full"), ("bst", "train"),

@@ -7,8 +7,9 @@ of that program runs only under a mesh: the vocab-parallel embedding
 (``layers/embedding_bag.lookup_sharded``), flash attention and RMSNorm on
 local shards (``kernels/ops._local_flash`` / ``_local_rmsnorm``), the
 heads split on local blocks (``ShardCtx.split_heads``), the MoE layer's
-local dispatch with its explicit all-gathers (``MoE._forward_sharded``),
-the decode over a sequence-sharded cache with its flash-decode combine
+global-capacity dispatch and its combine where the slots are
+(``MoE._forward_sharded``), the decode over a sequence-sharded cache
+with its flash-decode combine
 (``_decode_sharded`` of GQA and MLA) and the cross entropy over
 vocab-sharded logits. Here the three LM smoke configs (qwen2: dense GQA
 with bias and heads the model axis does not divide; granite: MoE, heads
@@ -18,18 +19,17 @@ layer) run in f32 with their parameters, batch and caches laid out by
 ``ShardCtx(mesh, dp="data", tp="model")``, against the same weights with
 ``NO_SHARD``:
 
-* training: the cross entropy, the aux loss (under a mesh each data rank
-  routes its own tokens, so the aux is the mean over the data ranks of
-  each block's; held against that mean computed without a mesh) and
-  every gradient of ``ce + aux``;
+* training: the cross entropy, the aux loss and every gradient of
+  ``ce + aux``;
 * prefill: the last position's logits;
 * decode: one step's logits and the caches after it, with the cache's
   sequence over "model" (decode_32k's layout, batch 2) and over every
   axis (long_500k's, batch 1), the new entry landing in a rank other
   than 0's block.
 
-The MoE layers run without drops on both sides (``no_drops``), since the
-capacity follows the local token count under a mesh. Tolerance: 2e-5 x
+The MoE layers run without drops on both sides (``no_drops``) in these
+cases; granite's MoE layer and training with drops, at the config's
+capacity factor, follow on (2, 2) and (4, 1) meshes. Tolerance: 2e-5 x
 the largest magnitude of each tensor (the losses 1e-5 relative); the same
 f32 sums in another order differ by at most 3.4e-6 x here. All ranks run
 in one subprocess with a time limit, as ``test_torch_gnn_dist`` does, so
@@ -86,9 +86,9 @@ def _rank_cases(path: str) -> None:
                                               sanitize)
     from repro_torch.layers.common import ShardCtx
     from repro_torch.layers.moe import no_drops
-    from repro_torch.models.transformer import (decode_step, forward,
-                                                init_caches, init_params,
-                                                loss_fn, prefill_step)
+    from repro_torch.models.transformer import (decode_step, init_caches,
+                                                init_params, loss_fn,
+                                                prefill_step)
     torch.set_num_threads(1)
     mesh = make_mesh(MESH, ("data", "model"), "cpu")
     ms = mesh_shape(mesh)
@@ -119,15 +119,12 @@ def _rank_cases(path: str) -> None:
             shd = init_params(cfg, seed=0, device="cpu")
             _distribute(shd, specs, mesh, serving=False)
             with no_drops(ref), no_drops(shd):
-                _, m0 = loss_fn(ref, batch)
-                half = B // MESH[0]
-                aux0 = sum(forward(ref, batch["tokens"][i:i + half])[1]
-                           for i in range(0, B, half)) / MESH[0]
-                (m0["ce"] + aux0).backward()
+                loss0, m0 = loss_fn(ref, batch)
+                loss0.backward()
                 loss1, m1 = loss_fn(shd, dbatch, ctx=ctx)
                 loss1.backward()
             put(f"{arch}|train|ce", m0["ce"], m1["ce"])
-            put(f"{arch}|train|aux", aux0, m1["aux"])
+            put(f"{arch}|train|aux", m0["aux"], m1["aux"])
             for (name, p0), (_, p1) in zip(ref.named_parameters(),
                                            shd.named_parameters()):
                 put(f"{arch}|grad|{name}", p0.grad, p1.grad)
@@ -199,7 +196,7 @@ def _close(pairs, tol):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_training_losses_on_a_mesh_equal_no_mesh(results, arch):
-    """ce equal; the aux equal to the mean of the data blocks' auxes."""
+    """ce and the aux equal."""
     for key, want, got in _pairs(results, f"{arch}|train|"):
         np.testing.assert_allclose(got, want, rtol=LOSS_RTOL, err_msg=key)
 
@@ -222,3 +219,122 @@ def test_decode_over_a_sharded_cache_equals_no_mesh(results, arch, cell):
     """The step's logits and every cache after the write (the new entry
     in another rank's block) within TOL."""
     _close(_pairs(results, f"{arch}|{cell}|"), TOL)
+
+
+# --------------------------------------------------------------------------
+# granite's MoE with drops: the reference's global capacity on a mesh
+# --------------------------------------------------------------------------
+
+DROP_MESHES = ((2, 2), (4, 1))
+DROP_SEED = 0
+DROP_TIMEOUT_S = 240
+
+
+def _drops_rank(path: str, ms) -> None:
+    """One rank: granite's smoke MoE layer (out and aux) and its training
+    loss and every gradient at the config's capacity factor, on the mesh
+    ``ms`` and without one; the assignments each dispatch drops, per
+    call. Rank 0 writes the arrays and the drop counts (the mesh's summed
+    over the data ranks of model rank 0) to ``path``."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardings import (lm_param_specs, mesh_shape,
+                                              placements, sanitize)
+    from repro_torch.layers.common import ShardCtx
+    from repro_torch.layers.moe import MoE
+    from repro_torch.models.transformer import init_params, loss_fn
+    torch.set_num_threads(1)
+    mesh = make_mesh(ms, ("data", "model"), "cpu")
+    ctx = ShardCtx(mesh=mesh, dp=("data",), tp="model")
+    cfg = get_config("granite-moe-3b-a800m").smoke().model_cfg
+    drops = {"want": [], "got": []}
+    side = ["want"]
+    orig = MoE.dispatch
+
+    def counted(self, experts, *a, **k):
+        disp = orig(self, experts, *a, **k)
+        e = self.router.shape[1]
+        drops[side[0]].append(int((disp.rows == e * disp.cap).sum()))
+        return disp
+    MoE.dispatch = counted
+    out = {}
+
+    def put(key, want, got):
+        out[f"{key}|want"] = np.asarray(want.detach().double())
+        out[f"{key}|got"] = np.asarray(_whole(got).detach().double())
+
+    gen = torch.Generator().manual_seed(DROP_SEED)
+    toks = torch.randint(0, cfg.vocab, (B, T + 1), generator=gen)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    with implicit_replication():
+        ref = init_params(cfg, seed=DROP_SEED, device="cpu")
+        shapes = dict(ref.named_parameters())
+        specs = sanitize(lm_param_specs(shapes), shapes, mesh_shape(mesh))
+        shd = init_params(cfg, seed=DROP_SEED, device="cpu")
+        _distribute(shd, specs, mesh, serving=False)
+        dbatch = {k: distribute_tensor(v, mesh, placements(("data", None),
+                                                           mesh))
+                  for k, v in batch.items()}
+        # the layer alone, on the embedded tokens
+        x = ref.embed.detach()[batch["tokens"]]
+        moe0, moe1 = ref.layers[0].ffn, shd.layers[0].ffn
+        side[0] = "want"
+        y0, a0 = moe0(x)
+        side[0] = "got"
+        y1, a1 = moe1(distribute_tensor(x, mesh, placements(
+            ("data", None, None), mesh)), ctx)
+        put("layer|out", y0, y1)
+        put("layer|aux", a0, a1)
+        # training: the loss and every gradient
+        side[0] = "want"
+        loss0, m0 = loss_fn(ref, batch)
+        loss0.backward()
+        side[0] = "got"
+        loss1, m1 = loss_fn(shd, dbatch, ctx=ctx)
+        loss1.backward()
+        put("train|ce", m0["ce"], m1["ce"])
+        put("train|aux", m0["aux"], m1["aux"])
+        for (name, p0), (_, p1) in zip(ref.named_parameters(),
+                                       shd.named_parameters()):
+            put(f"grad|{name}", p0.grad, p1.grad)
+    MoE.dispatch = orig
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, (mesh.get_coordinate(), drops["got"]))
+    got = [sum(d[i] for c, d in everyone if c[1] == 0)
+           for i in range(len(drops["got"]))]
+    out["drops|want"] = np.asarray(drops["want"])
+    out["drops|got"] = np.asarray(got)
+    if dist.get_rank() == 0:
+        np.savez(path, **out)
+
+
+@pytest.mark.parametrize("ms", DROP_MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_granite_moe_with_drops_on_a_mesh_equals_no_mesh(tmp_path, ms):
+    """At the config's capacity factor, granite's MoE layer (out, aux)
+    and its training (ce, aux, every gradient) on the mesh equal no mesh
+    within TOL (the losses LOSS_RTOL): the sharded dispatch takes the
+    whole batch's capacity and slots. Each layer drops at least one
+    assignment on each side, as many on the mesh as without it."""
+    path = str(tmp_path / "drops.npz")
+    proc = _start(f"""
+        import test_torch_mesh_values as t
+        from repro_torch.launch.enumerate import run_on_ranks
+        run_on_ranks({ms[0] * ms[1]}, "cpu", t._drops_rank, {path!r},
+                     {tuple(ms)!r})
+    """, {"OMP_NUM_THREADS": "1"})
+    _finish(proc, DROP_TIMEOUT_S)
+    with np.load(path) as z:
+        res = {k: z[k] for k in z.files}
+    want, got = res.pop("drops|want"), res.pop("drops|got")
+    assert len(want) == 3, want      # the layer, then each of 2 layers
+    assert (want > 0).all(), want
+    np.testing.assert_array_equal(got, want)
+    for key in ("layer|aux", "train|ce", "train|aux"):
+        np.testing.assert_allclose(res[f"{key}|got"], res[f"{key}|want"],
+                                   rtol=LOSS_RTOL, err_msg=key)
+    _close(_pairs(res, "layer|out"), TOL)
+    _close(_pairs(res, "grad|"), TOL)
