@@ -36,10 +36,12 @@ from collections import Counter
 from dataclasses import dataclass
 from typing import Callable, Dict, FrozenSet, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..graph.storage import Graph
 from ..kernels import ops as kops
+from . import trace
 from .instructions import DBQ, ENU, INI, INT, RES, TRC, Plan, Var
 
 FetchFn = Callable[[torch.Tensor], torch.Tensor]  # int32[B] -> int32[B, D]
@@ -77,11 +79,18 @@ class DeviceGraph:
     def from_graph(graph: Graph, device: torch.device) -> "DeviceGraph":
         """Rows padded to a multiple of 128 lanes, plus the sentinel row."""
         rows, _ = graph.padded_adjacency(lane=128)
-        out = torch.empty((graph.n + 1, rows.shape[1]), dtype=torch.int32,
+        return DeviceGraph.from_rows(rows, graph.n, device)
+
+    @staticmethod
+    def from_rows(rows: np.ndarray, n: int,
+                  device: torch.device) -> "DeviceGraph":
+        """``rows`` (int32[n, D], sentinel-padded) on ``device``, plus the
+        sentinel row."""
+        out = torch.empty((n + 1, rows.shape[1]), dtype=torch.int32,
                           device=device)
-        out[:graph.n].copy_(torch.from_numpy(rows))
-        out[graph.n] = graph.n
-        return DeviceGraph(rows=out, n=graph.n)
+        out[:n].copy_(torch.from_numpy(rows))
+        out[n] = n
+        return DeviceGraph(rows=out, n=n)
 
     def local_fetch(self) -> FetchFn:
         rows, n = self.rows, self.n
@@ -205,6 +214,9 @@ def _expand(env: Dict[Var, torch.Tensor], valid: torch.Tensor,
         buffer whose last slot takes every dropped child;
       * "sort":   stable argsort on the invalid mask.
     Both orders are identical, so results are bit-equal.
+
+    Traced, the level's flags scanned and valid candidates go to the
+    query's recorder (read back with the chunk).
     """
     B, D = cand.shape
     n = B * D
@@ -228,6 +240,9 @@ def _expand(env: Dict[Var, torch.Tensor], valid: torch.Tensor,
     parents = torch.div(take, D, rounding_mode="floor")
     total = fvalid.sum()
     overflow = (total - new_valid.sum()).clamp(min=0)
+    rec = trace.counting()
+    if rec is not None:
+        rec.enu_level(n, total)
     new_env: Dict[Var, torch.Tensor] = {}
     for v, arr in env.items():
         if v in live:
@@ -287,6 +302,14 @@ class EnumResult:
     matches_valid: Optional[torch.Tensor] = None
 
 
+def _valid_entries(sets: torch.Tensor, sentinel: int) -> torch.Tensor:
+    """int64: the entries of ``sets`` that are not ``sentinel``, summed a
+    row in float32 over a float16 mask (exact below 2^24 a row; a bool sum
+    would first copy the whole mask to int64)."""
+    return (sets != sentinel).to(torch.float16).sum(
+        -1, dtype=torch.float32).long().sum()
+
+
 def build_enumerator(plan: Plan,
                      sentinel: int,
                      caps: Sequence[int],
@@ -296,7 +319,8 @@ def build_enumerator(plan: Plan,
                      post_expand: Optional[Callable] = None,
                      compaction: str = "cumsum",
                      fused_rows: Optional[torch.Tensor] = None,
-                     gather_intersect_impl: str = "auto"
+                     gather_intersect_impl: str = "auto",
+                     fused_degrees: Optional[torch.Tensor] = None
                      ) -> Callable[..., EnumResult]:
     """Compile ``plan`` into a function of (starts, starts_valid
     [, universe_chunk]) on tensors of one device.
@@ -316,6 +340,13 @@ def build_enumerator(plan: Plan,
     ``post_expand(env, valid) -> (env, valid)`` (if given) runs right
     after every ENU expansion, before its level size is taken: the
     distributed engine's frontier rebalancer (core/engine_dist.py).
+
+    Traced (core/trace.py), each instruction runs under a span
+    ``engine.<OP>`` with its plan index and the level of the frontier it
+    acts on (an ENU's own level). ``fused_degrees`` (int32[N+1]: each row
+    of ``fused_rows``'s valid entries, 0 for the sentinel row), where
+    given, lets a traced fused launch count the valid entries of the rows
+    it gathers without gathering them.
     """
     has_universe = check_jit_supported(plan)
     live = _liveness(plan, collect_matches)
@@ -327,10 +358,18 @@ def build_enumerator(plan: Plan,
     fusable = (classify_fusable_dbqs(plan) if fused_rows is not None
                else frozenset())
 
+    span_names = [f"engine.{ins.op}" for ins in plan.instrs]
+
     def isect(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return kops.intersect_padded(a, b, sentinel, impl=intersect_impl)
 
     def fused(cand: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        rec = trace.counting()
+        if rec is not None and fused_degrees is not None:
+            rec.kernel("gather_intersect", torch.stack([
+                _valid_entries(cand, sentinel),
+                fused_degrees.index_select(0, ids.clamp(0, sentinel))
+                .sum()]))
         return kops.fused_gather_intersect(cand, ids, fused_rows, sentinel,
                                            impl=gather_intersect_impl)
 
@@ -348,62 +387,65 @@ def build_enumerator(plan: Plan,
         matches = None
         matches_valid = None
         enu_i = 0
+        rec = trace.current()
         for ip, ins in enumerate(plan.instrs):
-            if ins.op == INI:
-                env[ins.target] = starts.masked_fill(~valid, sentinel)
-            elif ins.op == DBQ:
-                ids = env[ins.operands[0]]
-                if ins.target in fusable:
-                    # lazy: keep the id column; the consuming INT/TRC
-                    # fuses the gather into the intersect kernel
-                    env[ins.target] = ids
-                    lazy.add(ins.target)
-                else:
-                    env[ins.target] = fetch(ids)
-            elif ins.op in (INT, TRC):
-                opvars = (list(ins.operands[2:4]) if ins.op == TRC
-                          else list(ins.operands))
-                res = None
-                for v in opvars:
-                    if v[0] == "VG":
-                        B = valid.shape[0]
-                        s = universe_chunk[None, :].expand(
-                            B, universe_chunk.shape[0]).contiguous()
-                        res = s if res is None else isect(res, s)
-                    elif v in lazy:
-                        lazy.discard(v)          # single-use by construction
-                        # only non-first operands are lazy, so a running
-                        # result always exists here
-                        assert res is not None, v
-                        res = fused(res, env[v])
+            with (trace.NULL if rec is None else
+                  rec.span(span_names[ip], ip=ip, level=enu_i)):
+                if ins.op == INI:
+                    env[ins.target] = starts.masked_fill(~valid, sentinel)
+                elif ins.op == DBQ:
+                    ids = env[ins.operands[0]]
+                    if ins.target in fusable:
+                        # lazy: keep the id column; the consuming INT/TRC
+                        # fuses the gather into the intersect kernel
+                        env[ins.target] = ids
+                        lazy.add(ins.target)
                     else:
-                        s = env[v]
-                        res = s if res is None else isect(res, s)
-                if ins.filters:
-                    res = _apply_filters(res, ins.filters, env, sentinel)
-                env[ins.target] = res
-            elif ins.op == ENU:
-                cand = env[ins.operands[0]]
-                env, valid, ov = _expand(env, valid, cand, ins.target,
-                                         caps[enu_i], live[ip + 1], sentinel,
-                                         compaction=compaction)
-                if ins.target not in live[ip + 1]:
-                    del env[ins.target]         # read by no later instruction
-                overflow = overflow + ov
-                if post_expand is not None:
-                    env, valid = post_expand(env, valid)
-                level_sizes.append(valid.sum())
-                enu_i += 1
-            elif ins.op == RES:
-                if plan.vcbc:
-                    count = count + _vcbc_row_counts(
-                        plan, env, valid, sentinel, ins.report).sum()
-                else:
-                    count = count + valid.sum()
-                    if collect_matches:
-                        matches = torch.stack([env[v] for v in ins.report],
-                                              dim=1)
-                        matches_valid = valid
+                        env[ins.target] = fetch(ids)
+                elif ins.op in (INT, TRC):
+                    opvars = (list(ins.operands[2:4]) if ins.op == TRC
+                              else list(ins.operands))
+                    res = None
+                    for v in opvars:
+                        if v[0] == "VG":
+                            B = valid.shape[0]
+                            s = universe_chunk[None, :].expand(
+                                B, universe_chunk.shape[0]).contiguous()
+                            res = s if res is None else isect(res, s)
+                        elif v in lazy:
+                            lazy.discard(v)      # single-use by construction
+                            # only non-first operands are lazy, so a running
+                            # result always exists here
+                            assert res is not None, v
+                            res = fused(res, env[v])
+                        else:
+                            s = env[v]
+                            res = s if res is None else isect(res, s)
+                    if ins.filters:
+                        res = _apply_filters(res, ins.filters, env, sentinel)
+                    env[ins.target] = res
+                elif ins.op == ENU:
+                    cand = env[ins.operands[0]]
+                    env, valid, ov = _expand(env, valid, cand, ins.target,
+                                             caps[enu_i], live[ip + 1],
+                                             sentinel, compaction=compaction)
+                    if ins.target not in live[ip + 1]:
+                        del env[ins.target]     # read by no later instruction
+                    overflow = overflow + ov
+                    if post_expand is not None:
+                        env, valid = post_expand(env, valid)
+                    level_sizes.append(valid.sum())
+                    enu_i += 1
+                elif ins.op == RES:
+                    if plan.vcbc:
+                        count = count + _vcbc_row_counts(
+                            plan, env, valid, sentinel, ins.report).sum()
+                    else:
+                        count = count + valid.sum()
+                        if collect_matches:
+                            matches = torch.stack([env[v] for v in ins.report],
+                                                  dim=1)
+                            matches_valid = valid
         return EnumResult(count=count, overflow=overflow,
                           level_sizes=tuple(level_sizes),
                           matches=matches, matches_valid=matches_valid)

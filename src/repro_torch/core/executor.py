@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ..graph.storage import Graph
+from . import trace
 from .engine_torch import (DeviceGraph, build_enumerator, check_jit_supported,
                            default_caps, resolve_device)
 from .instructions import ENU, Plan
@@ -256,8 +257,29 @@ def drive(backend: ExecutorBackend, plan: Any, source: Any,
     sub-chunks (adaptive task splitting — same capacities, smaller
     frontiers) or, once a chunk is a single unsplittable batch, with
     doubled capacities.
+
+    Traced (:mod:`.trace`: inside ``trace.recording()`` or under
+    ``torch.profiler``), the query runs under an ``exec.query`` span,
+    placement under ``exec.prepare`` and each chunk under ``exec.chunk``,
+    booked by its outcome; ``extras["trace"]`` holds the query's spans and
+    counters.
     """
-    backend.prepare(plan, source, config)
+    if not trace.on():
+        return _drive(backend, plan, source, config, None)
+    plans = plan if isinstance(plan, (list, tuple)) else [plan]
+    with trace.query(engine=backend.name,
+                     pattern=getattr(plans[0], "pattern_name", None),
+                     batch=config.batch) as rec:
+        stats = _drive(backend, plan, source, config, rec)
+    stats.extras["trace"] = rec.export()
+    return stats
+
+
+def _drive(backend: ExecutorBackend, plan: Any, source: Any,
+           config: ExecutorConfig,
+           rec: Optional[trace.Recorder]) -> ExecStats:
+    with trace.span("exec.prepare"):
+        backend.prepare(plan, source, config)
     stats = ExecStats()
     all_matches: List[np.ndarray] = []
     # every caps tuple the driver hands out is rounded up to the backend's
@@ -271,7 +293,10 @@ def drive(backend: ExecutorBackend, plan: Any, source: Any,
 
     caps0 = round_caps(backend.initial_caps(config))
     sentinel = getattr(backend, "sentinel", 0)
+    starts = 0
     for ids, valid in backend.start_batches(config):
+        if rec is not None:
+            starts += int(valid.sum())
         for uni in backend.universe_chunks(config):
             # (ids, valid, caps, escalations) — LIFO work stack
             work: List[Tuple[np.ndarray, np.ndarray, Tuple[int, ...], int]]
@@ -280,40 +305,51 @@ def drive(backend: ExecutorBackend, plan: Any, source: Any,
                 cids, cvalid, caps, tries = work.pop()
                 if not cvalid.any():
                     continue
-                res = backend.run_chunk(cids, cvalid, uni, caps)
+                chunk = None if rec is None else rec.span(
+                    "exec.chunk", seq=stats.chunks_run,
+                    starts=int(cvalid.sum()), caps=list(caps), tries=tries)
+                with chunk or trace.NULL:
+                    res = backend.run_chunk(cids, cvalid, uni, caps)
                 stats.chunks_run += 1
-                ok = res.overflow == 0 and res.drops == 0
-                if ok:
+                if res.overflow == 0 and res.drops == 0:
+                    outcome = "accepted"
                     stats.count += int(res.count)
                     stats.merge_extras(res.extras)
                     if res.matches is not None:
                         all_matches.append(res.matches)
-                    continue
-                if res.drops > 0:
-                    stats.drops_seen += int(res.drops)
-                    backend.escalate_requests()
-                halves = None
-                if (res.overflow > 0 and config.adaptive_split
-                        and backend.splittable):
-                    halves = split_id_batch(cids, cvalid,
-                                            backend.granularity, sentinel)
-                if halves is not None:
-                    stats.chunks_split += 1
-                    for h_ids, h_valid in halves:
-                        work.append((h_ids, h_valid, caps, tries))
-                    continue
-                if tries >= config.max_retries:
-                    raise RuntimeError(
-                        f"[{backend.name}] chunk overflowed after "
-                        f"{tries} escalations (caps={caps})")
-                stats.chunks_retried += 1
-                new_caps = round_caps(backend.grow_caps(caps)) \
-                    if res.overflow else caps
-                work.append((cids, cvalid, new_caps, tries + 1))
+                else:
+                    if res.drops > 0:
+                        stats.drops_seen += int(res.drops)
+                        backend.escalate_requests()
+                    halves = None
+                    if (res.overflow > 0 and config.adaptive_split
+                            and backend.splittable):
+                        halves = split_id_batch(cids, cvalid,
+                                                backend.granularity,
+                                                sentinel)
+                    if halves is not None:
+                        outcome = "split"
+                        stats.chunks_split += 1
+                        for h_ids, h_valid in halves:
+                            work.append((h_ids, h_valid, caps, tries))
+                    else:
+                        if tries >= config.max_retries:
+                            raise RuntimeError(
+                                f"[{backend.name}] chunk overflowed after "
+                                f"{tries} escalations (caps={caps})")
+                        outcome = "retried"
+                        stats.chunks_retried += 1
+                        new_caps = round_caps(backend.grow_caps(caps)) \
+                            if res.overflow else caps
+                        work.append((cids, cvalid, new_caps, tries + 1))
+                if chunk is not None:
+                    rec.end_chunk(chunk, outcome)
     if config.collect_matches:
         stats.matches = (np.concatenate(all_matches, axis=0) if all_matches
                          else np.zeros((0, getattr(plan, "n", 0)), np.int32))
     backend.finalize(stats)
+    if rec is not None:
+        rec.spans[0]["attrs"]["starts"] = starts
     return stats
 
 
@@ -428,7 +464,22 @@ class TorchBackend(ExecutorBackend):
                 config: ExecutorConfig) -> None:
         t0 = time.perf_counter()
         self.plan, self.graph = plan, source
-        self.dg = DeviceGraph.from_graph(source, self.device)
+        with trace.span("exec.prepare.pad"):
+            rows, deg = source.padded_adjacency(lane=128)
+        with trace.span("exec.prepare.copy"):
+            self.dg = DeviceGraph.from_rows(rows, source.n, self.device)
+            self._degrees = None
+            rec = trace.current()
+            if rec is not None:
+                rec.counts = True            # run_chunk reads them back
+                if self.fused:
+                    # each row's valid entries, for the fused kernel's
+                    # count
+                    d = torch.zeros(source.n + 1, dtype=torch.int32)
+                    d[:source.n] = torch.from_numpy(deg)
+                    self._degrees = d.to(self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         self.fetch = self.dg.local_fetch()
         self.sentinel = self.dg.n
         self.has_universe = check_jit_supported(plan)
@@ -438,8 +489,6 @@ class TorchBackend(ExecutorBackend):
         self._intersect = config.intersect_impl
         self._runners: Dict[Tuple[int, ...], Callable] = {}
         self._level_acc: Optional[np.ndarray] = None
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
         self._prepare_s = time.perf_counter() - t0
 
     def _n_starts(self) -> int:
@@ -461,21 +510,38 @@ class TorchBackend(ExecutorBackend):
                 intersect_impl=self._intersect,
                 compaction=self._compaction,
                 fused_rows=self.dg.rows if self.fused else None,
-                gather_intersect_impl=self._gi_impl)
+                gather_intersect_impl=self._gi_impl,
+                fused_degrees=self._degrees)
         return self._runners[caps]
 
     def run_chunk(self, ids, valid, universe_chunk, caps) -> ChunkResult:
         dev = self.device
-        args = [torch.from_numpy(ids).to(dev), torch.from_numpy(valid).to(dev)]
-        if universe_chunk is not None:
-            args.append(torch.from_numpy(universe_chunk).to(dev))
-        res = self._runner(tuple(caps))(*args)
-        # one device->host read per chunk: count, overflow, level sizes
-        head = torch.stack([res.count, res.overflow, *res.level_sizes])
-        count, ov, *levels = head.cpu().tolist()
-        matches = None
-        if self._collect and ov == 0 and res.matches is not None:
-            matches = res.matches[res.matches_valid].cpu().numpy()
+        rec = trace.current()
+        if rec is not None:
+            rec.start_device_clock(dev)
+        with trace.span("exec.chunk.upload"):
+            args = [torch.from_numpy(ids).to(dev),
+                    torch.from_numpy(valid).to(dev)]
+            if universe_chunk is not None:
+                args.append(torch.from_numpy(universe_chunk).to(dev))
+        with trace.span("exec.chunk.enqueue"):
+            res = self._runner(tuple(caps))(*args)
+            # one device->host read per chunk: count, overflow, level
+            # sizes and, traced, the chunk's device counters
+            head = [res.count, res.overflow, *res.level_sizes]
+            if rec is not None:
+                head += rec.head()
+            head = torch.stack(head)
+            if rec is not None:
+                rec.stop_device_clock()
+        with trace.span("exec.chunk.readback"):
+            count, ov, *rest = head.cpu().tolist()
+            matches = None
+            if self._collect and ov == 0 and res.matches is not None:
+                matches = res.matches[res.matches_valid].cpu().numpy()
+        levels = rest[:len(res.level_sizes)]
+        if rec is not None:
+            rec.settle(rest[len(levels):])
         if ov == 0 and levels:
             # accepted chunks only: frontier occupancy per ENU level
             lv = np.asarray(levels, np.int64)

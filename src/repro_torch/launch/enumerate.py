@@ -36,6 +36,10 @@ NCCL with one card a rank (more ranks than cards is an error), or gloo
 with ``--device cpu``. Without ``--devices`` the run is a world of one
 rank in this process. Only rank 0 prints. ``--engine ref`` interprets
 every task on the host and prints the remote DBQ rows of its model.
+
+``--trace PATH`` traces the run (``core/trace.py``): rank 0 writes the
+spans to PATH as Chrome trace-event JSON and prints the self time of each
+span name.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import os
 import shutil
 import tempfile
 import time
+from contextlib import nullcontext
 from datetime import timedelta
 
 import torch
@@ -250,6 +255,23 @@ def _run(args) -> None:
         say(f"frontier rows/level: {lv.tolist()}")
 
 
+def _traced_run(args) -> None:
+    """``_run``, inside ``trace.recording()`` when ``--trace`` names a
+    file."""
+    from ..core import trace
+    with trace.recording() if args.trace else nullcontext() as rec:
+        _run(args)
+    if rec is None or (dist.is_initialized() and dist.get_rank() != 0):
+        return
+    spans = rec.spans
+    trace.to_chrome(spans, args.trace)
+    say(f"trace              : {len(spans)} spans of {len(rec.queries)} "
+        f"queries -> {args.trace}")
+    for name, s in sorted(trace.self_times(spans).items(),
+                          key=lambda kv: -kv[1]):
+        say(f"  self {name:<20}: {s:.4f}s")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--pattern", default="chordal-square")
@@ -292,12 +314,15 @@ def main(argv=None):
     ap.add_argument("--update-batch", type=int, default=200,
                     help="edge updates per time step (continuous engines)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="trace the run: write its spans to PATH (Chrome "
+                         "trace-event JSON) and print self time by span")
     args = ap.parse_args(argv)
 
     if args.engine in ("dist", "sbenu-dist"):
-        run_on_ranks(args.devices, args.device, _run, args)
+        run_on_ranks(args.devices, args.device, _traced_run, args)
     else:
-        _run(args)
+        _traced_run(args)
 
 
 if __name__ == "__main__":
