@@ -10,7 +10,8 @@ matches (one row each), and every instruction acts on the whole frontier:
     TRC   the same intersection of its two adjacency operands
     ENU   expand each row by its candidate set and compact the valid
           children into a fixed-capacity child frontier (overflow is
-          counted; the driver re-chunks)
+          counted; the driver re-chunks); an ENU whose children only
+          RES's count reads sums its valid candidates instead
     RES   count (or collect) the rows that are complete matches
 
 Sets are padded int32 rows: entries equal to the sentinel (= N) are holes
@@ -127,6 +128,24 @@ def _liveness(plan: Plan, collect_matches: bool = False
     return live
 
 
+def count_only_enus(plan: Plan, live: List[frozenset],
+                    collect_matches: bool = False,
+                    post_expand: Optional[Callable] = None
+                    ) -> FrozenSet[int]:
+    """Plan indices of the ENUs that run count-only: only RES follows,
+    and it reads nothing of the child frontier but its size (no later
+    instruction reads a column, no VCBC count, no matches collected, no
+    ``post_expand`` hook moving the frontier first). Such a level sums
+    its valid candidates and never builds the child frontier; its size
+    and overflow are the compacting path's."""
+    if plan.vcbc or collect_matches or post_expand is not None:
+        return frozenset()
+    return frozenset(
+        ip for ip, ins in enumerate(plan.instrs)
+        if ins.op == ENU and not live[ip + 1]
+        and all(later.op == RES for later in plan.instrs[ip + 1:]))
+
+
 def classify_fusable_dbqs(plan: Plan) -> FrozenSet[Var]:
     """DBQ targets whose gather can fuse into the intersect kernel.
 
@@ -196,13 +215,27 @@ def _apply_filters(sets: torch.Tensor, filters,
     return out
 
 
+def _valid_per_row(sets: torch.Tensor, sentinel: int) -> torch.Tensor:
+    """int64[B]: each row's entries that are not ``sentinel``, summed in
+    float32 over a float16 mask (exact below 2^24 a row; a bool sum would
+    first copy the whole mask to int64)."""
+    return (sets != sentinel).to(torch.float16).sum(
+        -1, dtype=torch.float32).long()
+
+
 def _expand(env: Dict[Var, torch.Tensor], valid: torch.Tensor,
             cand: torch.Tensor, target: Var, cap: int, live: frozenset,
             sentinel: int, compaction: str = "cumsum",
-            extra_cols: Optional[Dict[Var, torch.Tensor]] = None
+            extra_cols: Optional[Dict[Var, torch.Tensor]] = None,
+            count_only: bool = False
             ) -> Tuple[Dict[Var, torch.Tensor], torch.Tensor, torch.Tensor]:
     """ENU: frontier [B] -> child frontier [cap]. Returns (env', valid',
     overflow_count).
+
+    ``count_only`` (a level whose children only RES's count reads,
+    :func:`count_only_enus`) builds no child frontier: it returns ``({},
+    size, overflow)`` with ``size`` = min(valid candidates, cap), an int64
+    scalar, which is what the compacting path's ``valid'.sum()`` reads.
 
     ``extra_cols`` maps extra per-candidate columns (``[B, D]`` aligned with
     ``cand``) to env vars of the child frontier — the S-BENU Delta-ENU uses
@@ -220,6 +253,12 @@ def _expand(env: Dict[Var, torch.Tensor], valid: torch.Tensor,
     """
     B, D = cand.shape
     n = B * D
+    if count_only:
+        total = torch.where(valid, _valid_per_row(cand, sentinel), 0).sum()
+        rec = trace.counting()
+        if rec is not None:
+            rec.enu_level(n, total, True)
+        return {}, total.clamp(max=cap), (total - cap).clamp(min=0)
     flat = cand.reshape(n)
     fvalid = ((cand != sentinel) & valid[:, None]).reshape(n)
     if compaction == "sort":
@@ -302,14 +341,6 @@ class EnumResult:
     matches_valid: Optional[torch.Tensor] = None
 
 
-def _valid_entries(sets: torch.Tensor, sentinel: int) -> torch.Tensor:
-    """int64: the entries of ``sets`` that are not ``sentinel``, summed a
-    row in float32 over a float16 mask (exact below 2^24 a row; a bool sum
-    would first copy the whole mask to int64)."""
-    return (sets != sentinel).to(torch.float16).sum(
-        -1, dtype=torch.float32).long().sum()
-
-
 def build_enumerator(plan: Plan,
                      sentinel: int,
                      caps: Sequence[int],
@@ -341,6 +372,10 @@ def build_enumerator(plan: Plan,
     after every ENU expansion, before its level size is taken: the
     distributed engine's frontier rebalancer (core/engine_dist.py).
 
+    ENUs whose children only RES's count reads run count-only
+    (:func:`count_only_enus`, decided here from the plan, its liveness,
+    ``collect_matches`` and ``post_expand``).
+
     Traced (core/trace.py), each instruction runs under a span
     ``engine.<OP>`` with its plan index and the level of the frontier it
     acts on (an ENU's own level). ``fused_degrees`` (int32[N+1]: each row
@@ -357,6 +392,7 @@ def build_enumerator(plan: Plan,
         raise ValueError("cannot collect raw matches from a VCBC plan")
     fusable = (classify_fusable_dbqs(plan) if fused_rows is not None
                else frozenset())
+    counted = count_only_enus(plan, live, collect_matches, post_expand)
 
     span_names = [f"engine.{ins.op}" for ins in plan.instrs]
 
@@ -367,7 +403,7 @@ def build_enumerator(plan: Plan,
         rec = trace.counting()
         if rec is not None and fused_degrees is not None:
             rec.kernel("gather_intersect", torch.stack([
-                _valid_entries(cand, sentinel),
+                _valid_per_row(cand, sentinel).sum(),
                 fused_degrees.index_select(0, ids.clamp(0, sentinel))
                 .sum()]))
         return kops.fused_gather_intersect(cand, ids, fused_rows, sentinel,
@@ -428,19 +464,24 @@ def build_enumerator(plan: Plan,
                     cand = env[ins.operands[0]]
                     env, valid, ov = _expand(env, valid, cand, ins.target,
                                              caps[enu_i], live[ip + 1],
-                                             sentinel, compaction=compaction)
-                    if ins.target not in live[ip + 1]:
-                        del env[ins.target]     # read by no later instruction
+                                             sentinel, compaction=compaction,
+                                             count_only=ip in counted)
                     overflow = overflow + ov
-                    if post_expand is not None:
-                        env, valid = post_expand(env, valid)
-                    level_sizes.append(valid.sum())
+                    if ip in counted:
+                        level_sizes.append(valid)   # the level's size
+                    else:
+                        if ins.target not in live[ip + 1]:
+                            del env[ins.target]  # read by no later instruction
+                        if post_expand is not None:
+                            env, valid = post_expand(env, valid)
+                        level_sizes.append(valid.sum())
                     enu_i += 1
                 elif ins.op == RES:
                     if plan.vcbc:
                         count = count + _vcbc_row_counts(
                             plan, env, valid, sentinel, ins.report).sum()
                     else:
+                        # after a count-only level, valid is its size
                         count = count + valid.sum()
                         if collect_matches:
                             matches = torch.stack([env[v] for v in ins.report],

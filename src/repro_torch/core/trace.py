@@ -20,8 +20,9 @@ On, ``drive`` keeps one :class:`Recorder` a query:
   would count it as device work.
 * **counters**: each chunk's device ms, summed by its outcome (accepted,
   split, retried); ENU's flags scanned and valid candidates, per level
-  and outcome; the fused gather-intersect kernel's valid entries of
-  ``cand`` and of the adjacency rows it gathers. Counts on the device are
+  and outcome, and the flags of the levels that ran count-only; the
+  fused gather-intersect kernel's valid entries of ``cand`` and of the
+  adjacency rows it gathers. Counts on the device are
   summed there during a chunk and read with the chunk's one read-back
   (:meth:`Recorder.head`, :meth:`Recorder.settle`). Only a backend that
   reads them back (``TorchBackend``) sets :attr:`Recorder.counts`; under
@@ -50,6 +51,9 @@ from torch._C._profiler import _RecordFunctionFast
 OUTCOMES = ("accepted", "split", "retried")
 #: per ENU level, in the order a chunk's levels run
 ENU_KEYS = ("flags", "valid")
+#: per ENU level too: the flags a level scanned where it ran count-only
+#: (its child frontier never built, core/engine_torch.py), else 0
+COUNTED = "counted"
 #: per kernel: valid entries of the candidates and of the other operand
 KERNEL_KEYS = ("cand_valid", "adj_valid")
 
@@ -178,17 +182,18 @@ class Recorder:
     # ---- the open chunk
 
     def _new_chunk(self) -> None:
-        self._levels: List[Tuple[int, torch.Tensor]] = []
+        self._levels: List[Tuple[int, torch.Tensor, int]] = []
         self._kernel_dev: Dict[str, torch.Tensor] = {}
         self._settled: Optional[Tuple[list, Dict[str, list]]] = None
         self._clock: Optional[Tuple[torch.cuda.Event,
                                     torch.cuda.Event]] = None
         self._chunk_ms: Optional[float] = None
 
-    def enu_level(self, flags: int, valid: torch.Tensor) -> None:
-        """An ENU level of the chunk: flags scanned, and the device
-        scalar of its valid candidates."""
-        self._levels.append((flags, valid))
+    def enu_level(self, flags: int, valid: torch.Tensor,
+                  count_only: bool = False) -> None:
+        """An ENU level of the chunk: flags scanned, the device scalar of
+        its valid candidates, and whether it ran count-only."""
+        self._levels.append((flags, valid, flags if count_only else 0))
 
     def kernel(self, name: str, valid: torch.Tensor) -> None:
         """A launch of kernel ``name``: ``valid`` = int64[2] on the
@@ -212,7 +217,7 @@ class Recorder:
 
     def head(self) -> List[torch.Tensor]:
         """The chunk's device scalars, to stack into its read-back."""
-        out = [valid for _, valid in self._levels]
+        out = [valid for _, valid, _ in self._levels]
         for acc in self._kernel_dev.values():
             out.extend(acc.unbind())
         return out
@@ -220,7 +225,8 @@ class Recorder:
     def settle(self, values: Sequence[int]) -> None:
         """The values of :meth:`head`, read back with the chunk."""
         it = iter(values)
-        levels = [(flags, next(it)) for flags, _ in self._levels]
+        levels = [(flags, next(it), counted)
+                  for flags, _, counted in self._levels]
         kernels = {name: [next(it) for _ in KERNEL_KEYS]
                    for name in self._kernel_dev}
         self._settled = (levels, kernels)
@@ -238,9 +244,10 @@ class Recorder:
         self.device_ms[outcome] += ms
         if self._settled is not None:
             levels, kernels = self._settled
-            enu = self.enu.setdefault(outcome, {k: [] for k in ENU_KEYS})
+            keys = ENU_KEYS + (COUNTED,)
+            enu = self.enu.setdefault(outcome, {k: [] for k in keys})
             for i, level in enumerate(levels):
-                for key, v in zip(ENU_KEYS, level):
+                for key, v in zip(keys, level):
                     col = enu[key]
                     if len(col) == i:
                         col.append(0)

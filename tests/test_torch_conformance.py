@@ -27,7 +27,8 @@ from repro.graph.generate import erdos_renyi as jax_er
 from repro.graph.generate import powerlaw as jax_pl
 
 from repro_torch.convert import device_graph_from_numpy, plan_from_fields
-from repro_torch.core.engine_torch import build_enumerator
+from repro_torch.core.engine_torch import (_liveness, build_enumerator,
+                                           count_only_enus)
 from repro_torch.core.executor import (ExecutorConfig, TorchBackend,
                                        TorchGpuBackend, drive, make_executor,
                                        plan_enu_count)
@@ -131,6 +132,62 @@ def test_per_chunk_results_equal_engine_jax(pname, gname, fused):
             np.testing.assert_array_equal(tr.matches_valid.numpy(), jv)
             np.testing.assert_array_equal(tr.matches.numpy()[jv],
                                           np.asarray(jr.matches)[jv])
+
+
+@pytest.mark.parametrize("pname,gname", [("triangle", "pl"),
+                                         ("clique4", "er"),
+                                         ("house", "pl"),
+                                         ("square", "er"),
+                                         ("cycle5", "pl")])
+@pytest.mark.parametrize("fused", [False, True])
+def test_per_chunk_counts_equal_engine_jax(pname, gname, fused):
+    """Counting only (the plan's last ENU runs count-only and builds no
+    child frontier): count, overflow and per-level sizes agree with the
+    JAX engine chunk by chunk, at caps that overflow in some chunks,
+    and at caps that only the count-only level can overflow (1 there):
+    it does wherever a chunk has two matches or more."""
+    import jax.numpy as jnp
+    from repro.core.executor import build_universe_chunks
+    jg, _ = graphs(gname)
+    jplan = jax_best_plan(jax_get_pattern(pname), jg.stats())
+    jdg = JaxDeviceGraph.from_graph(jg)
+    plan = plan_from_fields(dataclasses.asdict(jplan))
+    dg = device_graph_from_numpy(np.array(jdg.rows), jdg.n, "cpu")
+    n_enu = plan_enu_count(plan)
+    last_enu = max(i for i, ins in enumerate(plan.instrs)
+                   if ins.op == "ENU")
+    assert count_only_enus(plan, _liveness(plan)) == {last_enu}
+    uni = build_universe_chunks(jg.n, 16)[1]
+    last = []
+    for caps in ((16,) * n_enu, (512,) * n_enu,
+                 (1 << 14,) * (n_enu - 1) + (1,)):
+        jrun = jax_build_enumerator(
+            jplan, jdg.n, caps, jdg.local_fetch(),
+            fused_rows=jdg.rows if fused else None,
+            gather_intersect_impl="ref")
+        trun = build_enumerator(
+            plan, dg.n, caps, dg.local_fetch(),
+            fused_rows=dg.rows if fused else None)
+        for seed in range(3):
+            ids, valid = _chunk_inputs(jg.n, 24, seed)
+            jargs = [jnp.asarray(ids), jnp.asarray(valid)]
+            targs = [torch.from_numpy(ids), torch.from_numpy(valid)]
+            if any(v[0] == "VG" for i in plan.instrs for v in i.operands):
+                jargs.append(jnp.asarray(uni))
+                targs.append(torch.from_numpy(uni))
+            jr, tr = jrun(*jargs), trun(*targs)
+            assert int(tr.count) == int(jr.count)
+            assert int(tr.overflow) == int(jr.overflow)
+            assert [int(s) for s in tr.level_sizes] == \
+                [int(s) for s in jr.level_sizes]
+            assert tr.matches is None
+            if caps[-1] == 1:
+                # no earlier level overflows: all overflow is the last's
+                assert all(int(s) < c for s, c in
+                           zip(tr.level_sizes, caps[:-1]))
+                last.append((int(tr.count), int(tr.overflow)))
+    # clique4 on the er graph has no match in these chunks
+    assert any(ov for _, ov in last) or not any(c for c, _ in last)
 
 
 @pytest.mark.parametrize("engine", ["torch", "torch-gpu"])

@@ -5,6 +5,8 @@ nest, and every counter equals a plain recount.
     PYTHONPATH=src python -m pytest -q tests/test_torch_trace.py
 """
 
+import dataclasses
+import functools
 import json
 from collections import Counter
 
@@ -13,7 +15,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.core import engine_torch, trace
+from repro_torch.core import engine_torch, executor, trace
 from repro_torch.core.executor import make_executor, plan_enu_count
 from repro_torch.core.pattern import get_pattern
 from repro_torch.core.plangen import generate_best_plan
@@ -172,6 +174,64 @@ def test_kernel_counters_equal_a_recount(engine, graph, monkeypatch):
             assert want["cand_valid"] > 0 and want["adj_valid"] > 0
         else:
             assert kernels == {} and not want
+
+
+def counted_levels(st):
+    """Each ENU level's flags scanned and count-only flags, summed over
+    the chunks' outcomes."""
+    enu = st.extras["trace"]["counters"]["enu"]
+    return (sum(np.array(enu[o]["flags"]) for o in enu),
+            sum(np.array(enu[o][trace.COUNTED]) for o in enu))
+
+
+def outcome(st):
+    return (st.count, st.chunks_run, st.chunks_split, st.chunks_retried,
+            list(st.extras["level_sizes"]))
+
+
+@pytest.mark.parametrize("engine", BACKENDS)
+def test_count_only_last_level(engine, graph, monkeypatch):
+    """The square's last ENU feeds only RES's count, so it runs
+    count-only: its flags are counted and no other level's are. Collected
+    matches, a ``post_expand`` hook and a VCBC plan each keep every level
+    compacting. Count, chunks, splits and level sizes equal the
+    compacting path's in each case (a VCBC plan's count the plain
+    plan's)."""
+    counting = traced(engine, graph)
+    flags, counted = counted_levels(counting)
+    assert counted[-1] == flags[-1] > 0 and not counted[:-1].any()
+
+    collecting = traced(engine, graph, collect_matches=True)
+    assert not counted_levels(collecting)[1].any()
+    assert outcome(collecting) == outcome(counting)
+
+    hooked = []
+
+    def identity(env, valid):
+        hooked.append(valid.shape[0])
+        return env, valid
+
+    with monkeypatch.context() as m:
+        m.setattr(executor, "build_enumerator", functools.partial(
+            engine_torch.build_enumerator, post_expand=identity))
+        hooking = traced(engine, graph)
+    assert hooked and not counted_levels(hooking)[1].any()
+    assert outcome(hooking) == outcome(counting)
+
+    square = generate_best_plan(get_pattern("q1"), graph.stats())
+    live = engine_torch._liveness(square)
+    only = engine_torch.count_only_enus
+    assert only(square, live) == {len(square.instrs) - 2}
+    assert only(dataclasses.replace(square, vcbc=True), live) == set()
+    assert only(square, live, collect_matches=True) == set()
+    assert only(square, live, post_expand=identity) == set()
+    plan = generate_best_plan(get_pattern("q1"), graph.stats(), vcbc=True)
+    with trace.recording():
+        vcbc = make_executor(engine, device="cpu").run(
+            plan, graph, batch=16, caps=[16] * plan_enu_count(plan),
+            max_retries=10)
+    assert not counted_levels(vcbc)[1].any()
+    assert vcbc.count == counting.count
 
 
 def test_span_clock_is_the_profilers(graph):
